@@ -1,0 +1,127 @@
+"""The JAX encoder's parameters -> the port encoder's `state_dict`.
+
+The inverse of `pixelsplat_tpu/interop/torch_import.py::convert_encoder`
+for the encoder this port has (DINO backbone, no epipolar transformer).
+Input is the Flax parameter tree as nested dicts of numpy arrays (what
+`jax.device_get(encoder.init(...)["params"])` gives); output is keyed by
+the reference's torch parameter names, which are the port's.
+
+  Dense kernel (in, out)            -> Linear weight (out, in)
+  Conv kernel (kh, kw, in, out)     -> Conv2d weight (out, in, kh, kw)
+  LayerNorm scale / bias            -> weight / bias
+  frozen BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
+  ViT blocks stacked on a leading depth axis -> blocks.N, q/k/v fused into qkv
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from ..model.encoder.backbone.dino import VIT_SPECS, BackboneDinoCfg
+from ..model.encoder.backbone.resnet import RESNET_SPECS
+from ..model.encoder.encoder_epipolar import EncoderEpipolar, EncoderEpipolarCfg
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _linear(sd: dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv(sd: dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _layernorm(sd: dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _batchnorm(sd: dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+    sd[f"{prefix}.running_mean"] = _t(p["mean"])
+    sd[f"{prefix}.running_var"] = _t(p["var"])
+
+
+def _resnet(sd: dict, prefix: str, p: Mapping, model: str, num_layers: int) -> None:
+    _, stage_sizes = RESNET_SPECS[model]
+    _conv(sd, f"{prefix}.model.conv1", p["conv1"])
+    _batchnorm(sd, f"{prefix}.model.bn1", p["bn1"])
+    _conv(sd, f"{prefix}.projections.layer0", p["projection0"])
+    for stage in range(1, num_layers):
+        for i in range(stage_sizes[stage - 1]):
+            blk = p[f"layer{stage}_block{i}"]
+            tp = f"{prefix}.model.layer{stage}.{i}"
+            for n in (1, 2, 3):
+                _conv(sd, f"{tp}.conv{n}", blk[f"conv{n}"])
+                _batchnorm(sd, f"{tp}.bn{n}", blk[f"bn{n}"])
+            if "downsample" in blk:
+                _conv(sd, f"{tp}.downsample.0", blk["downsample"])
+                _batchnorm(sd, f"{tp}.downsample.1", blk["bn_ds"])
+        _conv(sd, f"{prefix}.projections.layer{stage}", p[f"projection{stage}"])
+
+
+def _dino_vit(sd: dict, prefix: str, p: Mapping, depth: int, dim: int) -> None:
+    _conv(sd, f"{prefix}.patch_embed.proj", p["patch_embed"])
+    sd[f"{prefix}.cls_token"] = _t(p["cls_token"])
+    sd[f"{prefix}.pos_embed"] = _t(p["pos_embed"])
+    _layernorm(sd, f"{prefix}.norm", p["norm"])
+    blocks = p["blocks"]
+    for i in range(depth):
+        def at(tree):  # block i of the depth-stacked tree
+            return {k: at(v) if isinstance(v, Mapping) else np.asarray(v)[i] for k, v in tree.items()}
+
+        b = at(blocks)
+        bp = f"{prefix}.blocks.{i}"
+        _layernorm(sd, f"{bp}.norm1", b["norm1"])
+        attn = b["attn"]
+        sd[f"{bp}.attn.qkv.weight"] = _t(
+            np.concatenate([attn[n]["kernel"].reshape(dim, dim).T for n in ("query", "key", "value")])
+        )
+        sd[f"{bp}.attn.qkv.bias"] = _t(
+            np.concatenate([attn[n]["bias"].reshape(dim) for n in ("query", "key", "value")])
+        )
+        sd[f"{bp}.attn.proj.weight"] = _t(attn["out"]["kernel"].reshape(dim, dim).T)
+        sd[f"{bp}.attn.proj.bias"] = _t(attn["out"]["bias"])
+        _layernorm(sd, f"{bp}.norm2", b["norm2"])
+        _linear(sd, f"{bp}.mlp.fc1", b["mlp_fc1"])
+        _linear(sd, f"{bp}.mlp.fc2", b["mlp_fc2"])
+
+
+def state_dict_from_jax(params: Mapping, cfg: EncoderEpipolarCfg) -> dict[str, torch.Tensor]:
+    """The port encoder's state_dict from the JAX encoder's parameter tree."""
+    if cfg.use_epipolar_transformer:
+        raise NotImplementedError("the port has no epipolar transformer yet")
+    if not isinstance(cfg.backbone, BackboneDinoCfg):
+        raise NotImplementedError("the port has the DINO backbone only")
+    sd: dict[str, torch.Tensor] = {}
+    bb = params["backbone"]
+    spec = VIT_SPECS[cfg.backbone.model]
+    _dino_vit(sd, "backbone.dino", bb["dino"], spec["depth"], spec["dim"])
+    _resnet(sd, "backbone.resnet_backbone", bb["resnet_backbone"], "dino_resnet50", 4)
+    for mlp in ("global_token", "local_token"):
+        _linear(sd, f"backbone.{mlp}_mlp.0", bb[f"{mlp}_fc1"])
+        _linear(sd, f"backbone.{mlp}_mlp.2", bb[f"{mlp}_fc2"])
+    _linear(sd, "backbone_projection.1", params["backbone_projection"])
+    _conv(sd, "high_resolution_skip.0", params["high_resolution_skip"])
+    _linear(sd, "to_gaussians.1", params["to_gaussians"])
+    _linear(sd, "depth_predictor.projection.1", params["depth_predictor"]["projection"])
+    return sd
+
+
+def load_from_jax(encoder: EncoderEpipolar, params: Mapping) -> EncoderEpipolar:
+    """Load the JAX encoder's parameters into `encoder` (strict)."""
+    sd = state_dict_from_jax(params, encoder.cfg)
+    device = next(encoder.parameters()).device
+    encoder.load_state_dict({k: v.to(device) for k, v in sd.items()}, strict=True)
+    return encoder

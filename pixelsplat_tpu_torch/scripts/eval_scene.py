@@ -1,0 +1,154 @@
+"""The slice's evaluation scene with random weights, and the timing
+helpers that `chip_smoke.py` and `profile_scene.py` share.
+
+The model is `re10k_ablation_no_epipolar_transformer` at full width; the
+scene is `bench.py`'s: two 256x256 context views 0.8 apart along x, three
+target views at x = -0.3, 0, 0.3, normalized intrinsics with focal 1. The
+weights and images come from a seeded `torch.Generator`.
+"""
+
+from __future__ import annotations
+
+import math
+import subprocess
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from ..config import re10k_ablation_no_epipolar_transformer
+from ..model.encoder.encoder_epipolar import EncoderEpipolarCfg
+from ..ops.rasterizer.composite import pack_columns
+from ..ops.rasterizer.projection import GaussiansSoA
+from ..ops.rasterizer.render import RenderSettings, project_and_bin
+from ..training.model_wrapper import ModelWrapper
+
+TARGET_VIEWS = 3
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn: Callable, iters: int = 5, warmup: int = 2) -> float:
+    """Mean milliseconds per call of `fn` on the device, from CUDA events
+    around `iters` calls after `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def view_inputs(scene: "EvalScene", gaussians, settings: RenderSettings) -> list:
+    """Per target view, (projected Gaussians, tile lists, parameter table):
+    the compositing kernel's inputs as the decoder builds them."""
+    soa = GaussiansSoA(*(None if x is None else x[0] for x in gaussians))
+    t = scene.target
+    out = []
+    for v in range(TARGET_VIEWS):
+        projected, tiles = project_and_bin(
+            t["extrinsics"][0, v], t["intrinsics"][0, v], t["near"][0, v], soa,
+            image_shape=scene.image_shape, settings=settings,
+        )
+        out.append((projected, tiles, pack_columns(projected).contiguous()))
+    return out
+
+
+def init_random_weights(module: torch.nn.Module, generator: torch.Generator) -> None:
+    """Fan-in scaled normals for matrices and kernels, zero biases, unit
+    norm scales, identity BatchNorm statistics, a 0.02 normal position
+    embedding, zero class token."""
+    with torch.no_grad():
+        for name, x in module.state_dict().items():
+            if name.endswith("pos_embed"):
+                x.copy_(torch.randn(x.shape, generator=generator, device=x.device) * 0.02)
+            elif name.endswith("running_var") or (name.endswith("weight") and x.ndim == 1):
+                x.fill_(1.0)
+            elif x.ndim >= 2 and not name.endswith("cls_token"):
+                fan_in = math.prod(x.shape[1:])
+                x.copy_(torch.randn(x.shape, generator=generator, device=x.device) / math.sqrt(fan_in))
+            else:
+                x.zero_()
+
+
+def scene_batch(device, generator: torch.Generator, h: int, w: int) -> dict:
+    k = torch.tensor([[1.0, 0.0, 0.5], [0.0, 1.0, 0.5], [0.0, 0.0, 1.0]], device=device)
+
+    def views(shifts):
+        v = len(shifts)
+        extr = torch.eye(4, device=device).repeat(1, v, 1, 1)
+        extr[0, :, 0, 3] = torch.tensor(shifts, device=device)
+        return {
+            "image": torch.rand((1, v, 3, h, w), generator=generator, device=device),
+            "extrinsics": extr,
+            "intrinsics": k.repeat(1, v, 1, 1),
+            "near": torch.ones((1, v), device=device),
+            "far": torch.full((1, v), 100.0, device=device),
+        }
+
+    return {"context": views([0.0, 0.8]), "target": views([-0.3, 0.0, 0.3])}
+
+
+@dataclass
+class EvalScene:
+    wrapper: ModelWrapper
+    batch: dict  # raw batch (before the data shim)
+    target: dict  # shimmed target views (cameras with near/far)
+    image_shape: tuple[int, int]
+    encode: Callable
+    decode: Callable
+
+    def choose(self, gaussians) -> RenderSettings:
+        t = self.target
+        return self.wrapper.choose_eval_settings(
+            gaussians, t["extrinsics"], t["intrinsics"], t["near"], self.image_shape
+        )
+
+    def render(self, gaussians, settings: RenderSettings):
+        t = self.target
+        return self.decode(
+            gaussians, t["extrinsics"], t["intrinsics"], t["near"], t["far"], self.image_shape, settings
+        )
+
+    def run(self, seed: int):
+        """Encode (probabilistic, SoA) -> choose settings -> render."""
+        device = self.wrapper.device
+        gaussians = self.encode(
+            self.batch, False, 0, generator=torch.Generator(device=device).manual_seed(seed)
+        )
+        settings = self.choose(gaussians)
+        color, overflow = self.render(gaussians, settings)
+        return gaussians, settings, color, overflow
+
+
+def make_eval_scene(
+    device="cuda",
+    seed: int = 0,
+    image_shape: tuple[int, int] = (256, 256),
+    encoder_cfg: Optional[EncoderEpipolarCfg] = None,
+) -> EvalScene:
+    default_encoder, decoder_cfg = re10k_ablation_no_epipolar_transformer()
+    wrapper = ModelWrapper(encoder_cfg or default_encoder, decoder_cfg, device=device)
+    generator = torch.Generator(device=wrapper.device).manual_seed(seed)
+    init_random_weights(wrapper.encoder, generator)
+    batch = scene_batch(wrapper.device, generator, *image_shape)
+    return EvalScene(
+        wrapper=wrapper,
+        batch=batch,
+        target=wrapper.data_shim(batch)["target"],
+        image_shape=image_shape,
+        encode=wrapper.make_eval_encode(pack_soa=True),
+        decode=wrapper.make_eval_decode(),
+    )
