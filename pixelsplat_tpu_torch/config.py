@@ -6,7 +6,9 @@ under `config/`). This module gathers them and builds the configuration of
 the published ablation `config/experiment/re10k_ablation_no_epipolar_
 transformer.yaml`: pixelSplat's re10k model without the epipolar
 transformer, i.e. the DINO ViT-B/8 + dino_resnet50 backbone, d_feature
-128, 32 depth buckets, 3 Gaussians per pixel and degree-4 SH.
+128, 32 depth buckets, 3 Gaussians per pixel and degree-4 SH, trained with
+MSE + LPIPS (from step 150,000) by Adam at 1.5e-4 with a 2,000-step warm-up
+and a 0.5 global-norm clip (`config/main.yaml`).
 """
 
 from __future__ import annotations
@@ -21,7 +23,27 @@ from .model.encoder.encoder_epipolar import (
     ImageSelfAttentionCfg,
     OpacityMappingCfg,
 )
+from dataclasses import dataclass, field
+
+from .loss import LossDepthCfg, LossLpipsCfg, LossMseCfg
 from .ops.rasterizer.render import RenderSettings
+from .training.model_wrapper import TrainCfg
+from .training.optimizer import OptimizerCfg
+
+# Target views per training example
+# (config/dataset/view_sampler_dataset_specific_config/bounded_re10k.yaml).
+NUM_TARGET_VIEWS = 4
+
+
+@dataclass(frozen=True)
+class TrainingCfg:
+    """What `config/main.yaml` and the experiment give the trainer."""
+
+    optimizer: OptimizerCfg = field(default_factory=OptimizerCfg)
+    train: TrainCfg = field(default_factory=TrainCfg)
+    loss: tuple = (LossMseCfg(), LossLpipsCfg())
+    gradient_clip_val: float = 0.5
+    accumulate_grad_batches: int = 1
 
 
 def re10k_ablation_no_epipolar_transformer() -> tuple[EncoderEpipolarCfg, DecoderSplattingCfg]:
@@ -57,6 +79,18 @@ def re10k_ablation_no_epipolar_transformer() -> tuple[EncoderEpipolarCfg, Decode
     return encoder, DecoderSplattingCfg()
 
 
+def re10k_ablation_no_epipolar_transformer_training() -> TrainingCfg:
+    """Optimizer, train settings and the loss list `[mse, lpips]` of the
+    `re10k_ablation_no_epipolar_transformer` experiment."""
+    return TrainingCfg(
+        optimizer=OptimizerCfg(lr=1.5e-4, warm_up_steps=2000),
+        train=TrainCfg(depth_mode=None, extended_visualization=False, remat_encoder=False),
+        loss=(LossMseCfg(weight=1.0), LossLpipsCfg(weight=0.05, apply_after_step=150_000)),
+        gradient_clip_val=0.5,
+        accumulate_grad_batches=1,
+    )
+
+
 __all__ = [
     "BackboneDinoCfg",
     "BackboneResnetCfg",
@@ -65,7 +99,14 @@ __all__ = [
     "EpipolarTransformerCfg",
     "GaussianAdapterCfg",
     "ImageSelfAttentionCfg",
+    "LossDepthCfg",
+    "LossLpipsCfg",
+    "LossMseCfg",
     "OpacityMappingCfg",
+    "OptimizerCfg",
     "RenderSettings",
+    "TrainCfg",
+    "TrainingCfg",
     "re10k_ablation_no_epipolar_transformer",
+    "re10k_ablation_no_epipolar_transformer_training",
 ]

@@ -1,4 +1,4 @@
-"""The JAX encoder's parameters -> the port encoder's `state_dict`.
+"""The JAX package's parameter trees -> the port's `state_dict`s.
 
 The inverse of `pixelsplat_tpu/interop/torch_import.py::convert_encoder`
 for the encoder this port has (DINO backbone, no epipolar transformer).
@@ -11,6 +11,11 @@ the reference's torch parameter names, which are the port's.
   LayerNorm scale / bias            -> weight / bias
   frozen BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
   ViT blocks stacked on a leading depth axis -> blocks.N, q/k/v fused into qkv
+
+Every mapping is linear (transposes, reshapes, concatenation), so
+`state_dict_from_jax` serves as well for a tree of gradients or of Adam
+moments as for the weights. `lpips_state_dict_from_jax` does the same for
+the Flax LPIPS tree (`pixelsplat_tpu/evaluation/lpips.py`).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..evaluation.lpips import SLICE_OF, TAPS, TV_INDICES
 from ..model.encoder.backbone.dino import VIT_SPECS, BackboneDinoCfg
 from ..model.encoder.backbone.resnet import RESNET_SPECS
 from ..model.encoder.encoder_epipolar import EncoderEpipolar, EncoderEpipolarCfg
@@ -125,3 +131,16 @@ def load_from_jax(encoder: EncoderEpipolar, params: Mapping) -> EncoderEpipolar:
     device = next(encoder.parameters()).device
     encoder.load_state_dict({k: v.to(device) for k, v in sd.items()}, strict=True)
     return encoder
+
+
+def lpips_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The port LPIPS module's state_dict from the Flax LPIPS parameters
+    (`{"vgg": {"conv0": ...}, "lin0": ...}`, with or without the outer
+    `"params"` level)."""
+    params = params.get("params", params)
+    sd: dict[str, torch.Tensor] = {}
+    for i, tv_idx in enumerate(TV_INDICES):
+        _conv(sd, f"net.slice{SLICE_OF[i]}.{tv_idx}", params["vgg"][f"conv{i}"])
+    for i in range(len(TAPS)):
+        _conv(sd, f"lins.{i}.model.1", params[f"lin{i}"])
+    return sd

@@ -37,14 +37,21 @@ class BackboneResnetCfg:
 
 
 class FrozenBatchNorm2d(nn.Module):
-    """Inference-mode BatchNorm: (x - mean) * rsqrt(var + 1e-5) * w + b."""
+    """Inference-mode BatchNorm: (x - mean) * rsqrt(var + 1e-5) * w + b.
+
+    It never takes batch statistics, in `train()` mode either. The
+    statistics are parameters, under the names of BatchNorm's buffers: the
+    JAX package declares `mean` and `var` as parameters
+    (`backbone/resnet.py:66-69`) and its optimizer masks nothing, so a
+    training step differentiates and updates them like any weight.
+    """
 
     def __init__(self, channels: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
+        self.running_mean = nn.Parameter(torch.zeros(channels))
+        self.running_var = nn.Parameter(torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (n, c, h, w)
         scale = torch.rsqrt(self.running_var + 1e-5)

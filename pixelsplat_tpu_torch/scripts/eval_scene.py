@@ -83,22 +83,27 @@ def init_random_weights(module: torch.nn.Module, generator: torch.Generator) -> 
                 x.zero_()
 
 
-def scene_batch(device, generator: torch.Generator, h: int, w: int) -> dict:
+def scene_batch(
+    device, generator: torch.Generator, h: int, w: int,
+    target_shifts=(-0.3, 0.0, 0.3), batch: int = 1,
+) -> dict:
+    """`batch` examples of two context views 0.8 apart along x and one
+    target view per entry of `target_shifts`, with random images."""
     k = torch.tensor([[1.0, 0.0, 0.5], [0.0, 1.0, 0.5], [0.0, 0.0, 1.0]], device=device)
 
     def views(shifts):
         v = len(shifts)
-        extr = torch.eye(4, device=device).repeat(1, v, 1, 1)
-        extr[0, :, 0, 3] = torch.tensor(shifts, device=device)
+        extr = torch.eye(4, device=device).repeat(batch, v, 1, 1)
+        extr[:, :, 0, 3] = torch.tensor(shifts, device=device)
         return {
-            "image": torch.rand((1, v, 3, h, w), generator=generator, device=device),
+            "image": torch.rand((batch, v, 3, h, w), generator=generator, device=device),
             "extrinsics": extr,
-            "intrinsics": k.repeat(1, v, 1, 1),
-            "near": torch.ones((1, v), device=device),
-            "far": torch.full((1, v), 100.0, device=device),
+            "intrinsics": k.repeat(batch, v, 1, 1),
+            "near": torch.ones((batch, v), device=device),
+            "far": torch.full((batch, v), 100.0, device=device),
         }
 
-    return {"context": views([0.0, 0.8]), "target": views([-0.3, 0.0, 0.3])}
+    return {"context": views([0.0, 0.8]), "target": views(list(target_shifts))}
 
 
 @dataclass

@@ -1,6 +1,6 @@
-"""Where the evaluation scene's time goes on the GPU.
+"""Where the evaluation scene's, or one training step's, time goes on the GPU.
 
-    python -m pixelsplat_tpu_torch.scripts.profile_scene [--out FILE]
+    python -m pixelsplat_tpu_torch.scripts.profile_scene [--train] [--out FILE]
 
 Builds the scene of `eval_scene.py` (full width, 393,216 Gaussians),
 warms up, then reports:
@@ -13,6 +13,15 @@ warms up, then reports:
   `composite_tiles` with its packing and image assembly) and of the
   encoder's backbone;
 * the device kernels that take the most time, by name.
+
+With `--train` it builds the training step of `train_scene.py` instead
+(batch 1, 2 context + 4 target views at 256x256, MSE; LPIPS is gated off
+at step 0) and reports the step's forward, backward and optimizer
+milliseconds (CUDA events), the forward's stages (encode; per view project
+and bin, pack, the forward kernel), the backward's (per view the
+rasterizer's backward with the backward kernel alone beside it; the
+encoder's backward as the rest), peak memory, and the device's busy share
+and heaviest kernels over one step.
 
 Needs a CUDA device; prints the card's name and power limit beside the
 numbers. With `--out` the full profiler table also goes to that file.
@@ -30,7 +39,10 @@ from ..ops.rasterizer.composite import composite_tiles, pack_columns
 from ..ops.rasterizer.composite_kernel import composite_core
 from ..ops.rasterizer.projection import GaussiansSoA
 from ..ops.rasterizer.render import project_and_bin
+from ..ops.rasterizer.composite_kernel import composite_bwd
+from ..ops.rasterizer.projection import pack_gaussians_soa
 from .eval_scene import TARGET_VIEWS, card_line, cuda_ms, make_eval_scene, view_inputs
+from .train_scene import backward_inputs, make_train_scene, timed_step
 
 
 def host_ms(fn) -> float:
@@ -41,9 +53,94 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def profile_and_report(run, label: str, reference_ms: float, card: str, out) -> None:
+    """Device busy share and kernel breakdown over one call of `run`."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    device_us = sum(
+        e.self_device_time_total for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    print(f"one {label}: device kernels {device_us / 1e3:.3f} ms; busy {device_us / 1e3 / reference_ms:.1%} "
+          f"of the unprofiled host-clock {label} ({reference_ms:.3f} ms), "
+          f"{device_us / wall_us:.1%} of the profiled one ({wall_us / 1e3:.3f} ms)")
+    print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=70))
+    if out:
+        with open(out, "w") as f:
+            f.write(f"card: {card}\n")
+            f.write(events.table(sort_by="self_device_time_total", row_limit=200, max_name_column_width=120))
+
+
+def profile_train(card: str, out) -> None:
+    ts = make_train_scene()
+    wrapper, state = ts.wrapper, ts.state
+    batch = ts.batch(1)
+    timed_step(ts, batch)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    splits = [timed_step(ts, batch) for _ in range(3)]
+    step = {k: sum(s[k] for s in splits) / len(splits) for k in splits[0]}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_host = host_ms(lambda: timed_step(ts, batch))
+    print(f"train step (batch 1, MSE), CUDA events: forward {step['forward_ms']:.3f} ms, backward "
+          f"{step['backward_ms']:.3f} ms, optimizer {step['optimizer_ms']:.3f} ms; host clock "
+          f"{step_host:.3f} ms; peak memory {peak:.2f} GiB")
+
+    # Forward stages. The encoder with autograd on, then per target view.
+    shimmed = wrapper.data_shim(batch)
+    generator = torch.Generator(device=wrapper.device).manual_seed(1)
+    encode = cuda_ms(lambda: wrapper.encoder(shimmed["context"], 0, False, generator=generator))
+    gaussians = wrapper.encoder(shimmed["context"], 0, False, generator=generator)
+    leaves = [x[0].detach().requires_grad_(True) for x in
+              (gaussians.means, gaussians.covariances, gaussians.opacities, gaussians.harmonics)]
+    settings = wrapper.decoder.cfg.render
+    target = shimmed["target"]
+    h, w = ts.image_shape
+    views = target["image"].shape[1]
+    background = torch.zeros(3, device=wrapper.device)
+
+    def render_view(v, backward):
+        soa = pack_gaussians_soa(leaves[0], leaves[1], leaves[2], harmonics=leaves[3])
+        projected, tiles = project_and_bin(
+            target["extrinsics"][0, v], target["intrinsics"][0, v], target["near"][0, v], soa,
+            image_shape=(h, w), settings=settings,
+        )
+        image = composite_tiles(projected, tiles, (h, w), background, settings.tile_size, settings.chunk)
+        if backward:
+            ((image - target["image"][0, v]) ** 2).mean().backward()
+            for x in leaves:
+                x.grad = None
+
+    render_fwd = sum(cuda_ms(lambda: render_view(v, False)) for v in range(views)) / views
+    render_both = sum(cuda_ms(lambda: render_view(v, True)) for v in range(views)) / views
+    inputs = backward_inputs(ts, batch)
+    k1 = k2 = 0.0
+    for inp in inputs:
+        t = inp["tiles"]
+        lists = (inp["table"], t.flat, t.block_start, t.counts)
+        k1 += cuda_ms(lambda: composite_core(*lists, inp["tiles_x"], inp["chunk"]), iters=50) / views
+        k2 += cuda_ms(
+            lambda: composite_bwd(*lists, inp["n_proc"], inp["trans"], inp["g_acc"], inp["g_trans"],
+                                  inp["tiles_x"], inp["chunk"]),
+            iters=20,
+        ) / views
+    raster_bwd = render_both - render_fwd
+    print(f"forward stages, ms: encode {encode:.3f}; per view render {render_fwd:.3f} "
+          f"(forward kernel {k1:.3f}); {views} views {views * render_fwd:.3f}")
+    print(f"backward stages, ms: per view rasterizer backward {raster_bwd:.3f} (backward kernel {k2:.3f}); "
+          f"{views} views {views * raster_bwd:.3f}; encoder backward and the rest "
+          f"{step['backward_ms'] - views * raster_bwd:.3f}; the backward kernel's share of the step "
+          f"{views * k2 / sum(step.values()):.2%}")
+    profile_and_report(lambda: timed_step(ts, batch), "training step", step_host, card, out)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the full profiler table here")
+    parser.add_argument("--train", action="store_true", help="profile one training step instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_scene needs a CUDA device")
@@ -51,6 +148,10 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}")
+    if args.train:
+        profile_train(card, args.out)
+        print(f"card: {card}")
+        return
 
     scene = make_eval_scene()
     gaussians, settings, _, _ = scene.run(1)  # warm-up
@@ -99,27 +200,7 @@ def main() -> None:
         resnet = cuda_ms(lambda: encoder.backbone.resnet_backbone(image))
     print(f"encoder stages, ms: backbone {backbone:.3f} (ViT {vit:.3f}, ResNet {resnet:.3f})")
 
-    # Device busy share and kernel breakdown over one scene.
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        scene.run(0)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    device_us = sum(
-        e.self_device_time_total for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    scene_ms = t_encode + t_choose + t_render
-    print(f"one scene: device kernels {device_us / 1e3:.3f} ms; busy {device_us / 1e3 / scene_ms:.1%} "
-          f"of the unprofiled host-clock scene ({scene_ms:.3f} ms), "
-          f"{device_us / wall_us:.1%} of the profiled one ({wall_us / 1e3:.3f} ms)")
-    table = events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=70)
-    print(table)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write(f"card: {card}\n")
-            f.write(events.table(sort_by="self_device_time_total", row_limit=200, max_name_column_width=120))
+    profile_and_report(lambda: scene.run(0), "scene", t_encode + t_choose + t_render, card, args.out)
     print(f"card: {card}")
 
 

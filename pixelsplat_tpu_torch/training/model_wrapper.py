@@ -1,17 +1,26 @@
-"""Evaluation entry points around the encoder and decoder.
+"""Training and evaluation entry points around the encoder and decoder.
 
-Port of the evaluation methods of `pixelsplat_tpu/training/model_wrapper.py`
-(`make_eval_encode`, `choose_eval_settings`, `make_eval_decode`): encode
-the context views, choose render settings for the scene from its tile
-occupancy, render the target views. Training waits for a later slice.
+Port of `pixelsplat_tpu/training/model_wrapper.py` for one device. Training:
+`init_state`, `loss_fn`, `train_step` and `make_train_step(accumulate=)`
+(encode the context views, render the target views, the configured losses,
+backward, global-norm clip, Adam with warm-up). Evaluation:
+`make_eval_encode`, `choose_eval_settings`, `make_eval_decode` (encode,
+choose render settings for the scene from its tile occupancy, render).
+
+Where the JAX package threads an explicit parameter tree through pure
+functions, the parameters here live in `self.encoder` and a train step
+updates them in place; `TrainState.params` names the same tensors.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Union
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..loss import get_losses
 from ..model.decoder.decoder_splatting import DecoderSplatting, DecoderSplattingCfg
 from ..model.encoder.data_shim import get_data_shim
 from ..model.encoder.encoder_epipolar import EncoderEpipolar, EncoderEpipolarCfg
@@ -19,6 +28,25 @@ from ..model.types import Gaussians
 from ..ops.rasterizer.adaptive import choose_settings
 from ..ops.rasterizer.projection import GaussiansSoA
 from ..ops.rasterizer.render import RenderSettings
+from .optimizer import Optimizer, OptimizerCfg
+
+
+@dataclass(frozen=True)
+class TrainCfg:
+    depth_mode: Optional[str] = None
+    extended_visualization: bool = False
+    # Recompute the encoder in the backward pass (torch.utils.checkpoint):
+    # trades encoder FLOPs for activation memory.
+    remat_encoder: bool = False
+
+
+@dataclass
+class TrainState:
+    """Parameters (the encoder's own tensors, by name), optimizer, step."""
+
+    params: dict[str, torch.nn.Parameter]
+    optimizer: Optimizer
+    step: int = 0
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -30,6 +58,13 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
             "passes device='cpu'"
         )
     return device
+
+
+def _slice_batch(batch: dict, lo: int, hi: int) -> dict:
+    """Batch elements lo..hi of every leaf of a nested batch dict."""
+    return {
+        k: _slice_batch(v, lo, hi) if isinstance(v, dict) else v[lo:hi] for k, v in batch.items()
+    }
 
 
 def batch_to(batch: dict, device: torch.device) -> dict:
@@ -47,21 +82,145 @@ def batch_to(batch: dict, device: torch.device) -> dict:
 
 
 class ModelWrapper:
-    """Holds the encoder (in eval mode on `device`), the decoder and the
-    encoder's data shim."""
+    """Holds the encoder (on `device`; it has no layer that behaves
+    differently in training mode), the decoder, the encoder's data shim
+    and, for training, the losses and optimizer settings."""
 
     def __init__(
         self,
         encoder_cfg: EncoderEpipolarCfg,
         decoder_cfg: DecoderSplattingCfg,
         device: Union[str, torch.device] = "cuda",
+        optimizer_cfg: OptimizerCfg = OptimizerCfg(),
+        train_cfg: TrainCfg = TrainCfg(),
+        loss_cfgs: Sequence = (),
+        gradient_clip_val: float = 0.5,
     ):
         self.device = resolve_device(device)
         self.encoder_cfg = encoder_cfg
         self.encoder = EncoderEpipolar(encoder_cfg).to(self.device).eval()
         self.data_shim = get_data_shim(encoder_cfg)
         self.decoder = DecoderSplatting(decoder_cfg)
+        self.optimizer_cfg = optimizer_cfg
+        self.train_cfg = train_cfg
+        self.gradient_clip_val = gradient_clip_val
+        self.losses = get_losses(list(loss_cfgs), device=self.device)
 
+    # ------------------------------------------------------------------
+    def init_state(self) -> TrainState:
+        """A fresh optimizer over the encoder's current weights, at step 0."""
+        params = dict(self.encoder.named_parameters())
+        optimizer = Optimizer(params.values(), self.optimizer_cfg, self.gradient_clip_val)
+        return TrainState(params=params, optimizer=optimizer, step=0)
+
+    def state_dict(self, state: TrainState) -> dict:
+        """What a checkpoint holds: parameters, optimizer state and step."""
+        return {
+            "params": self.encoder.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": state.step,
+        }
+
+    def load_state_dict(self, state: TrainState, payload: dict) -> TrainState:
+        self.encoder.load_state_dict(payload["params"], strict=True)
+        state.optimizer.load_state_dict(payload["optimizer"])
+        state.step = int(payload["step"])
+        return state
+
+    def loss_fn(
+        self,
+        batch: dict,
+        step: int,
+        generator: Optional[torch.Generator] = None,
+        u: Optional[torch.Tensor] = None,
+    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """(total loss, parts) of one batch at the encoder's current weights.
+
+        The depth-sampling uniforms come from `u` ((b, v, h*w, surfaces,
+        gpp)) when given, else from `generator`; they are drawn here, before
+        the encoder, so a rematerialized encoder sees the same samples.
+        """
+        batch = self.data_shim(batch_to(batch, self.device))
+        context, target = batch["context"], batch["target"]
+        b, v, _, ch, cw = context["image"].shape
+        h, w = target["image"].shape[-2:]
+        cfg = self.encoder_cfg
+        if u is None:
+            u = torch.rand(
+                (b, v, ch * cw, cfg.num_surfaces, cfg.gaussians_per_pixel),
+                generator=generator, device=self.device,
+            )
+
+        def encode(context, u):
+            return self.encoder(context, step, False, u=u.to(self.device))
+
+        if self.train_cfg.remat_encoder:
+            gaussians = checkpoint(encode, context, u, use_reentrant=False)
+        else:
+            gaussians = encode(context, u)
+        output = self.decoder(
+            gaussians, target["extrinsics"], target["intrinsics"], target["near"], target["far"],
+            (h, w), depth_mode=self.train_cfg.depth_mode,
+        )
+        total = output.color.new_zeros(())
+        parts = {}
+        for loss in self.losses:
+            value = loss(output, batch, gaussians, step)
+            parts[f"loss/{loss.name}"] = value.detach()
+            total = total + value
+        with torch.no_grad():
+            mse = ((output.color - target["image"]) ** 2).mean()
+            parts["train/psnr_probabilistic"] = -10.0 * torch.log10(mse)
+            # Pairs the binner dropped at tile capacity: non-zero means
+            # Gaussians missing from the rendered views.
+            parts["train/overflow_pairs"] = output.overflow.float()
+        parts["loss/total"] = total.detach()
+        return total, parts
+
+    def train_step(self, state: TrainState, batch: dict, generator=None, u=None):
+        return self.make_train_step()(state, batch, generator=generator, u=u)
+
+    def make_train_step(self, accumulate: int = 1) -> Callable:
+        """`step_fn(state, batch, generator=None, u=None)` -> (state, parts).
+
+        One optimizer update: gradients of `loss_fn`, global-norm clip, Adam
+        at the scheduled rate; the weights and `state` change in place.
+        `accumulate` > 1 splits the batch into that many micro-batches along
+        its first axis and applies one update to the mean of their
+        gradients; every loss term is a per-example mean, so that equals the
+        large batch's gradient, and clip and Adam see only the mean.
+        """
+
+        def step_fn(state, batch, generator=None, u=None):
+            params = list(state.params.values())
+            for p in params:
+                p.grad = None
+            size = next(iter(batch["context"].values())).shape[0]
+            if size % accumulate:
+                raise ValueError(f"accumulate={accumulate} does not divide the batch of {size}")
+            micro = size // accumulate
+            parts = None
+            for i in range(accumulate):
+                lo, hi = i * micro, (i + 1) * micro
+                total, mb_parts = self.loss_fn(
+                    _slice_batch(batch, lo, hi), state.step, generator, None if u is None else u[lo:hi]
+                )
+                total.backward()  # adds into .grad
+                parts = mb_parts if parts is None else {k: parts[k] + v for k, v in mb_parts.items()}
+            for p in params:
+                if p.grad is None:  # a weight the loss does not reach
+                    p.grad = torch.zeros_like(p)
+            if accumulate > 1:
+                inv = 1.0 / accumulate
+                torch._foreach_mul_([p.grad for p in params], inv)
+                parts = {k: v * inv for k, v in parts.items()}
+            state.optimizer.step(state.step)
+            state.step += 1
+            return state, parts
+
+        return step_fn
+
+    # ------------------------------------------------------------------
     def make_eval_encode(self, pack_soa: bool = False) -> Callable:
         """`encode_fn(batch, deterministic, step, generator=None, u=None)`.
 
