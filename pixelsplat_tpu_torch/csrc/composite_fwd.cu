@@ -43,21 +43,14 @@
 // than one tile per block so fewer SMs idle behind early-exiting tiles,
 // and FP16x2 / fast-math exponent evaluation where accuracy allows.
 
-#include <cuda_runtime.h>
+#include "composite_fwd_body.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPixels = kTile * kTile;  // threads per block
-constexpr int kRow = 12;                // floats per table row
-constexpr int kRowVec = kRow / 4;       // float4s per table row
-constexpr int kMaxChunk = 128;
-constexpr int kChPad = 8;               // output channels
-constexpr int kColours = 6;
-constexpr float kTransEps = 1e-4f;
-constexpr float kMaxAlpha = 0.99f;
-constexpr float kMinAlpha = 1.0f / 255.0f;
+using namespace composite;
 
+// The loop itself is composite_fwd_body.cuh's composite_tile, which the
+// stage-ablation kernel shares; <0, true> is every stage and the exit vote.
 __global__ void __launch_bounds__(kPixels)
 composite_fwd_kernel(const float4* __restrict__ table,
                      const int* __restrict__ flat,
@@ -68,56 +61,8 @@ composite_fwd_kernel(const float4* __restrict__ table,
                      float* __restrict__ trans_out,
                      int* __restrict__ nproc_out) {
   __shared__ float4 rows[kMaxChunk * kRowVec];
-
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const float px = static_cast<float>((t % tiles_x) * kTile + (p % kTile));
-  const float py = static_cast<float>((t / tiles_x) * kTile + (p / kTile));
-  const int n_chunks = (counts[t] + chunk - 1) / chunk;
-  const long long base = static_cast<long long>(block_start[t]) * chunk;
-
-  float trans = 1.0f;
-  float acc[kColours];
-#pragma unroll
-  for (int k = 0; k < kColours; ++k) acc[k] = 0.0f;
-
-  int done = 0;
-  bool go = n_chunks > 0;
-  while (go) {
-    const int* ids = flat + base + static_cast<long long>(done) * chunk;
-    for (int e = p; e < chunk * kRowVec; e += kPixels) {
-      const int slot = e / kRowVec;
-      const int part = e - slot * kRowVec;
-      rows[e] = __ldg(table + static_cast<long long>(__ldg(ids + slot)) * kRowVec + part);
-    }
-    __syncthreads();
-
-    const float* r = reinterpret_cast<const float*>(rows);
-    for (int c = 0; c < chunk; ++c) {
-      const float* g = r + c * kRow;
-      const float dx = px - g[0];
-      const float dy = py - g[1];
-      const float power = -0.5f * (g[2] * dx * dx + g[4] * dy * dy) - g[3] * dx * dy;
-      float alpha = fminf(kMaxAlpha, g[5] * expf(power));
-      if (!(power <= 0.0f && alpha >= kMinAlpha)) alpha = 0.0f;
-      const float weight = alpha * trans;
-#pragma unroll
-      for (int k = 0; k < kColours; ++k) acc[k] += weight * g[6 + k];
-      trans *= 1.0f - alpha;
-    }
-    ++done;
-    // Block-wide vote; also the barrier before `rows` is overwritten.
-    const int any_open = __syncthreads_or(trans >= kTransEps);
-    go = any_open && done < n_chunks;
-  }
-
-  float* out = acc_out + static_cast<long long>(t) * kChPad * kPixels + p;
-#pragma unroll
-  for (int k = 0; k < kColours; ++k) out[k * kPixels] = acc[k];
-  out[kColours * kPixels] = 0.0f;
-  out[(kColours + 1) * kPixels] = 0.0f;
-  trans_out[static_cast<long long>(t) * kPixels + p] = trans;
-  if (p == 0) nproc_out[t] = done;
+  composite_tile<0u, true>(table, flat, block_start, counts, tiles_x, chunk,
+                           acc_out, trans_out, nproc_out, rows);
 }
 
 }  // namespace
@@ -129,9 +74,9 @@ extern "C" int composite_fwd(const float* table, const int* flat,
                              int num_tiles, int tiles_x, int chunk,
                              float* acc, float* trans, int* n_proc,
                              void* stream) {
-  if (chunk < 1 || chunk > kMaxChunk) return static_cast<int>(cudaErrorInvalidValue);
+  if (chunk < 1 || chunk > composite::kMaxChunk) return static_cast<int>(cudaErrorInvalidValue);
   if (num_tiles == 0) return 0;
-  composite_fwd_kernel<<<num_tiles, kPixels, 0, static_cast<cudaStream_t>(stream)>>>(
+  composite_fwd_kernel<<<num_tiles, composite::kPixels, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(table), flat, block_start, counts, tiles_x,
       chunk, acc, trans, n_proc);
   return static_cast<int>(cudaGetLastError());

@@ -1,13 +1,15 @@
 """The JAX package's parameter trees -> the port's `state_dict`s.
 
 The inverse of `pixelsplat_tpu/interop/torch_import.py::convert_encoder`
-for the encoder this port has (DINO backbone, no epipolar transformer).
-Input is the Flax parameter tree as nested dicts of numpy arrays (what
+for the encoder this port has (DINO backbone, with or without the epipolar
+transformer). Input is the Flax parameter tree as nested dicts of numpy arrays (what
 `jax.device_get(encoder.init(...)["params"])` gives); output is keyed by
 the reference's torch parameter names, which are the port's.
 
   Dense kernel (in, out)            -> Linear weight (out, in)
   Conv kernel (kh, kw, in, out)     -> Conv2d weight (out, in, kh, kw)
+  ConvTranspose kernel (kh, kw, in, out) -> ConvTranspose2d weight
+                                       (in, out, kh, kw), flipped in space
   LayerNorm scale / bias            -> weight / bias
   frozen BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
   ViT blocks stacked on a leading depth axis -> blocks.N, q/k/v fused into qkv
@@ -28,7 +30,7 @@ import torch
 from ..evaluation.lpips import SLICE_OF, TAPS, TV_INDICES
 from ..model.encoder.backbone.dino import VIT_SPECS, BackboneDinoCfg
 from ..model.encoder.backbone.resnet import RESNET_SPECS
-from ..model.encoder.encoder_epipolar import EncoderEpipolar, EncoderEpipolarCfg
+from ..model.encoder.encoder_epipolar import EncoderEpipolar, EncoderEpipolarCfg, EpipolarTransformerCfg
 
 
 def _t(x) -> torch.Tensor:
@@ -43,6 +45,15 @@ def _linear(sd: dict, prefix: str, p: Mapping) -> None:
 
 def _conv(sd: dict, prefix: str, p: Mapping) -> None:
     sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv_transpose(sd: dict, prefix: str, p: Mapping) -> None:
+    # Flax's ConvTranspose is a fractionally strided correlation: torch's
+    # transposed convolution with the kernel flipped in space.
+    kernel = np.asarray(p["kernel"])[::-1, ::-1]
+    sd[f"{prefix}.weight"] = _t(kernel.transpose(2, 3, 0, 1))
     if "bias" in p:
         sd[f"{prefix}.bias"] = _t(p["bias"])
 
@@ -104,10 +115,43 @@ def _dino_vit(sd: dict, prefix: str, p: Mapping, depth: int, dim: int) -> None:
         _linear(sd, f"{bp}.mlp.fc2", b["mlp_fc2"])
 
 
+def _feed_forward(sd: dict, prefix: str, p: Mapping) -> None:
+    _linear(sd, f"{prefix}.net.0", p["fc1"])
+    _linear(sd, f"{prefix}.net.3", p["fc2"])
+
+
+def _transformer(sd: dict, prefix: str, p: Mapping, depth: int, feed_forward=_feed_forward) -> None:
+    """layers.N.0 = PreNorm(Attention), layers.N.1 = PreNorm(feed-forward)."""
+    for i in range(depth):
+        _layernorm(sd, f"{prefix}.layers.{i}.0.norm", p[f"attn_norm_{i}"])
+        for name, dense in p[f"attn_{i}"].items():  # to_qkv, or to_q and to_kv; to_out
+            _linear(sd, f"{prefix}.layers.{i}.0.fn.{name}" + (".0" if name == "to_out" else ""), dense)
+        _layernorm(sd, f"{prefix}.layers.{i}.1.norm", p[f"ff_norm_{i}"])
+        feed_forward(sd, f"{prefix}.layers.{i}.1.fn", p[f"ff_{i}"])
+
+
+def _epipolar_transformer(sd: dict, prefix: str, p: Mapping, cfg: EpipolarTransformerCfg) -> None:
+    def image_self_attention_ff(sd, fn_prefix, ff):
+        sa, sp = ff["self_attention"], f"{fn_prefix}.self_attention"
+        _conv(sd, f"{sp}.patch_embedder.0", sa["patch_embedder"])
+        _linear(sd, f"{sp}.positional_encoding.1", sa["pe_proj"])
+        _transformer(sd, f"{sp}.transformer", sa["transformer"], cfg.self_attention.num_layers)
+        _conv_transpose(sd, f"{sp}.resampler", sa["resampler"])
+
+    _transformer(sd, f"{prefix}.transformer", p["transformer"], cfg.num_layers, image_self_attention_ff)
+    if cfg.num_octaves > 0:
+        _linear(sd, f"{prefix}.depth_encoding.1", p["depth_proj"])
+    if cfg.downscale:
+        _conv(sd, f"{prefix}.downscaler", p["downscaler"])
+        _conv_transpose(sd, f"{prefix}.upscaler", p["upscaler"])
+        _conv(sd, f"{prefix}.upscale_refinement.0", p["refine1"])
+        _conv(sd, f"{prefix}.upscale_refinement.2", p["refine2"])
+    if "view_embeddings" in p:
+        sd[f"{prefix}.view_embeddings.weight"] = _t(p["view_embeddings"]["embedding"])
+
+
 def state_dict_from_jax(params: Mapping, cfg: EncoderEpipolarCfg) -> dict[str, torch.Tensor]:
     """The port encoder's state_dict from the JAX encoder's parameter tree."""
-    if cfg.use_epipolar_transformer:
-        raise NotImplementedError("the port has no epipolar transformer yet")
     if not isinstance(cfg.backbone, BackboneDinoCfg):
         raise NotImplementedError("the port has the DINO backbone only")
     sd: dict[str, torch.Tensor] = {}
@@ -122,6 +166,8 @@ def state_dict_from_jax(params: Mapping, cfg: EncoderEpipolarCfg) -> dict[str, t
     _conv(sd, "high_resolution_skip.0", params["high_resolution_skip"])
     _linear(sd, "to_gaussians.1", params["to_gaussians"])
     _linear(sd, "depth_predictor.projection.1", params["depth_predictor"]["projection"])
+    if cfg.use_epipolar_transformer:
+        _epipolar_transformer(sd, "epipolar_transformer", params["epipolar_transformer"], cfg.epipolar_transformer)
     return sd
 
 

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own
 into `build/kernels/lib<name>-<hash>.so` at the root of the checkout, for
-Hopper (`sm_90a`). The file name carries a hash of the source and the
-flags, so an edited source rebuilds and a built one loads at once. Nothing
+Hopper (`sm_90a`). The file name carries a hash of the source, of the
+`csrc/` headers it includes and of the flags, so an edited source or header
+rebuilds and a built one loads at once. Nothing
 here runs at import time: a library is built on the first call that needs
 it.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,6 +28,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -41,8 +45,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
+def _with_includes(path: Path, seen: set[Path]) -> bytes:
+    """The file's bytes followed by those of every `#include "..."` it
+    names under csrc/, recursively, each once."""
+    seen.add(path)
+    data = path.read_bytes()
+    for header in _INCLUDE.findall(data.decode()):
+        included = (path.parent / header).resolve()
+        if included not in seen and included.exists():
+            data += _with_includes(included, seen)
+    return data
+
+
 def library_path(name: str) -> Path:
-    source = (CSRC / f"{name}.cu").read_bytes()
+    source = _with_includes((CSRC / f"{name}.cu").resolve(), set())
     digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,13 +1,11 @@
 """The pixelSplat encoder: context images -> per-pixel 3D Gaussians.
 
-Port of `pixelsplat_tpu/model/encoder/encoder_epipolar.py` without the
-epipolar transformer (`use_epipolar_transformer=False`, the published
-"no epipolar transformer" ablation): backbone -> 1x1 projection to
-d_feature -> high-resolution conv skip -> monocular depth predictor ->
-per-pixel Gaussian head -> Gaussian adapter, with the pdf -> opacity
-warm-up mapping and per-pixel xy offsets. The transformer's modules come
-with the slice that brings the production `re10k` config; its config
-dataclasses live here already, because the data shim reads them.
+Port of `pixelsplat_tpu/model/encoder/encoder_epipolar.py`: backbone -> 1x1
+projection to d_feature -> epipolar transformer (unless
+`use_epipolar_transformer=False`, the published ablation) -> high-resolution
+conv skip -> monocular depth predictor -> per-pixel Gaussian head ->
+Gaussian adapter, with the pdf -> opacity warm-up mapping and per-pixel xy
+offsets.
 """
 
 from __future__ import annotations
@@ -25,29 +23,7 @@ from .backbone.dino import BackboneDino, BackboneDinoCfg
 from .backbone.resnet import BackboneResnet, BackboneResnetCfg
 from .common.gaussian_adapter import GaussianAdapter, GaussianAdapterCfg
 from .epipolar.depth_predictor_monocular import DepthPredictorMonocular
-
-
-@dataclass(frozen=True)
-class ImageSelfAttentionCfg:
-    patch_size: int = 4
-    num_octaves: int = 10
-    num_layers: int = 2
-    num_heads: int = 4
-    d_token: int = 128
-    d_dot: int = 128
-    d_mlp: int = 256
-
-
-@dataclass(frozen=True)
-class EpipolarTransformerCfg:
-    self_attention: ImageSelfAttentionCfg = field(default_factory=ImageSelfAttentionCfg)
-    num_octaves: int = 10
-    num_layers: int = 2
-    num_heads: int = 4
-    num_samples: int = 32
-    d_dot: int = 128
-    d_mlp: int = 256
-    downscale: int = 4
+from .epipolar.epipolar_transformer import EpipolarTransformer, EpipolarTransformerCfg
 
 
 @dataclass(frozen=True)
@@ -85,11 +61,6 @@ class EncoderEpipolarCfg:
 class EncoderEpipolar(nn.Module):
     def __init__(self, cfg: EncoderEpipolarCfg):
         super().__init__()
-        if cfg.use_epipolar_transformer:
-            raise NotImplementedError(
-                "use_epipolar_transformer=True: the epipolar transformer comes with the "
-                "slice that ports the production re10k config"
-            )
         if cfg.compute_dtype is not None:
             raise NotImplementedError("compute_dtype: the port computes in float32")
         if cfg.predict_opacity or cfg.use_transmittance:
@@ -103,6 +74,10 @@ class EncoderEpipolar(nn.Module):
             self.backbone = BackboneResnet(cfg.backbone)
         d_out = cfg.backbone.d_out
         self.backbone_projection = nn.Sequential(nn.ReLU(), nn.Linear(d_out, cfg.d_feature))
+        if cfg.use_epipolar_transformer:
+            self.epipolar_transformer = EpipolarTransformer(
+                cfg.epipolar_transformer, cfg.d_feature, num_context_views=cfg.num_context_views
+            )
         self.high_resolution_skip = nn.Sequential(
             nn.Conv2d(3, cfg.d_feature, 7, padding=3), nn.ReLU()
         )
@@ -131,14 +106,21 @@ class EncoderEpipolar(nn.Module):
         pack_soa: bool = False,
         u: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        view_order: Optional[torch.Tensor] = None,
+        visualization_dump: Optional[dict] = None,
     ) -> Union[Gaussians, GaussiansSoA]:
         """Encode `context` (images (b, v, 3, h, w) and cameras).
 
         The depth samples are drawn from `u` ((b, v, h*w, surfaces, gpp)
-        uniforms) when given, else from `generator`. With `pack_soa` the
-        scene comes out as `GaussiansSoA` planes with a leading batch axis
-        in (v, srf, gpp, r) Gaussian order, its harmonics sample-shared
-        (b, 3, d_sh, v*srf, 1, h*w); otherwise as AoS `Gaussians`.
+        uniforms) when given, else from `generator`. With more than two
+        views the epipolar transformer's view embeddings are dealt in
+        `view_order` (a permutation of v-1) when given; else in a random
+        order from `generator`, or in plain order when deterministic. With
+        `pack_soa` the scene comes out as `GaussiansSoA` planes with a
+        leading batch axis in (v, srf, gpp, r) Gaussian order, its harmonics
+        sample-shared (b, 3, d_sh, v*srf, 1, h*w); otherwise as AoS
+        `Gaussians`. `visualization_dump`, when given, receives the depths,
+        scales, rotations and the epipolar sampling.
         """
         cfg = self.cfg
         image = context["image"]
@@ -146,6 +128,15 @@ class EncoderEpipolar(nn.Module):
 
         features = self.backbone(image)  # (b, v, h, w, c)
         features = self.backbone_projection(features)
+
+        sampling = None
+        if cfg.use_epipolar_transformer:
+            if view_order is None and v > 2 and not deterministic:
+                view_order = torch.randperm(v - 1, generator=generator, device=features.device)
+            features, sampling = self.epipolar_transformer(
+                features, context["extrinsics"], context["intrinsics"], context["near"], context["far"],
+                view_order=view_order,
+            )
 
         skip = self.high_resolution_skip(image.reshape(b * v, 3, h, w))
         features = features + skip.permute(0, 2, 3, 1).reshape(b, v, h, w, cfg.d_feature)
@@ -178,6 +169,12 @@ class EncoderEpipolar(nn.Module):
 
         spp = gaussians.means.shape[-2]
         srf = cfg.num_surfaces
+        if visualization_dump is not None:
+            visualization_dump["depth"] = depths.reshape(b, v, h, w, srf, -1)
+            visualization_dump["scales"] = gaussians.scales.reshape(b, -1, 3)
+            visualization_dump["rotations"] = gaussians.rotations.reshape(b, -1, 4)
+            if sampling is not None:
+                visualization_dump["sampling"] = sampling
         g = v * (h * w) * srf * spp
         opacities = gaussians.opacities
         if pack_soa:

@@ -60,11 +60,14 @@ def composite_core_plain(
     tiles_x: int,
     chunk: int = 128,
     tile_size: int = 16,
+    early_exit: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, vectorised over tiles.
 
     Loops over chunks with a per-tile active mask under the kernel's exit
-    rule; transmittance is a running product along each chunk.
+    rule; transmittance is a running product along each chunk. With
+    `early_exit=False` every tile walks all of its chunks, as the stage
+    ablation's `full` variant does.
     """
     device = table.device
     num_tiles = counts.shape[0]
@@ -79,7 +82,7 @@ def composite_core_plain(
     slots = torch.arange(chunk, device=device)
     base = block_start.long() * chunk
     for i in range(int(n_chunks.max()) if num_tiles else 0):
-        if not bool(active.any()):
+        if early_exit and not bool(active.any()):
             break
         idx = torch.where(active, base + i * chunk, 0)[:, None] + slots[None]
         rows = table[flat[idx.clamp(max=flat.numel() - 1)].long()]  # (T, C, 12)
@@ -96,7 +99,9 @@ def composite_core_plain(
         acc[:, :MAX_COLOURS] += torch.einsum("tcp,tcx->txp", weight, rows[..., 6:])
         trans = trans * cum[:, -1]
         n_proc += active.to(torch.int32)
-        active = active & (i + 1 < n_chunks) & (trans.amax(dim=1) >= TRANS_EPS)
+        active = active & (i + 1 < n_chunks)
+        if early_exit:
+            active = active & (trans.amax(dim=1) >= TRANS_EPS)
     return acc, trans, n_proc
 
 

@@ -1,14 +1,21 @@
-"""The slice's evaluation scene with random weights, and the timing
-helpers that `chip_smoke.py` and `profile_scene.py` share.
+"""The evaluation scene with random weights, and the timing helpers that
+`chip_smoke.py` and `profile_scene.py` share.
 
-The model is `re10k_ablation_no_epipolar_transformer` at full width; the
-scene is `bench.py`'s: two 256x256 context views 0.8 apart along x, three
-target views at x = -0.3, 0, 0.3, normalized intrinsics with focal 1. The
-weights and images come from a seeded `torch.Generator`.
+    python -m pixelsplat_tpu_torch.scripts.eval_scene [--model NAME]
+
+The model is one of `config.EXPERIMENTS` at full width (`re10k`, the
+production model with the epipolar transformer, unless named otherwise);
+the scene is `bench.py`'s: two 256x256 context views 0.8 apart along x,
+three target views at x = -0.3, 0, 0.3, normalized intrinsics with focal 1.
+The weights and images come from a seeded `torch.Generator`. Run as a
+script (on a CUDA device) it encodes, chooses settings and renders once,
+checks the result, and prints encode and render times from CUDA events
+with the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import math
 import subprocess
 from dataclasses import dataclass
@@ -16,7 +23,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..config import re10k_ablation_no_epipolar_transformer
+from ..config import EXPERIMENTS
 from ..model.encoder.encoder_epipolar import EncoderEpipolarCfg
 from ..ops.rasterizer.composite import pack_columns
 from ..ops.rasterizer.projection import GaussiansSoA
@@ -143,8 +150,11 @@ def make_eval_scene(
     seed: int = 0,
     image_shape: tuple[int, int] = (256, 256),
     encoder_cfg: Optional[EncoderEpipolarCfg] = None,
+    model: str = "re10k",
 ) -> EvalScene:
-    default_encoder, decoder_cfg = re10k_ablation_no_epipolar_transformer()
+    """The scene of experiment `model` (its encoder replaced by
+    `encoder_cfg` when given), with seeded random weights, on `device`."""
+    default_encoder, decoder_cfg = EXPERIMENTS[model][0]()
     wrapper = ModelWrapper(encoder_cfg or default_encoder, decoder_cfg, device=device)
     generator = torch.Generator(device=wrapper.device).manual_seed(seed)
     init_random_weights(wrapper.encoder, generator)
@@ -157,3 +167,33 @@ def make_eval_scene(
         encode=wrapper.make_eval_encode(pack_soa=True),
         decode=wrapper.make_eval_decode(),
     )
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description="Run the evaluation scene once on the GPU and time it.")
+    parser.add_argument("--model", default="re10k", choices=sorted(EXPERIMENTS))
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("eval_scene needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    scene = make_eval_scene(seed=args.seed, model=args.model)
+    scene.run(args.seed + 1)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    gaussians, settings, color, overflow = scene.run(args.seed)
+    torch.cuda.synchronize()
+    h, w = scene.image_shape
+    if gaussians.mean_x.shape[1] != 2 * h * w * 3 or int(overflow) or not bool(torch.isfinite(color).all()):
+        raise SystemExit(f"FAIL: {gaussians.mean_x.shape[1]} Gaussians, overflow {int(overflow)}, or non-finite images")
+    encode_ms = cuda_ms(lambda: scene.encode(scene.batch, False, 0))
+    render_ms = cuda_ms(lambda: scene.render(gaussians, settings)) / TARGET_VIEWS
+    print(f"{args.model}: {gaussians.mean_x.shape[1]} Gaussians, images {tuple(color.shape)}, overflow 0, "
+          f"capacity {settings.capacity}, pair_budget {settings.pair_budget}")
+    print(f"{card} | encode {encode_ms:.3f} ms | render {render_ms:.3f} ms/view | "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+if __name__ == "__main__":
+    main()

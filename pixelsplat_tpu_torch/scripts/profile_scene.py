@@ -1,8 +1,9 @@
 """Where the evaluation scene's, or one training step's, time goes on the GPU.
 
-    python -m pixelsplat_tpu_torch.scripts.profile_scene [--train] [--out FILE]
+    python -m pixelsplat_tpu_torch.scripts.profile_scene [--model NAME] [--train] [--out FILE]
 
-Builds the scene of `eval_scene.py` (full width, 393,216 Gaussians),
+Builds the scene of `eval_scene.py` (the model named, `re10k` by default,
+at full width; 393,216 Gaussians),
 warms up, then reports:
 
 * host-clock milliseconds of encode, choose settings and render (each
@@ -10,8 +11,10 @@ warms up, then reports:
   from `torch.profiler`;
 * CUDA-event milliseconds of the render's stages per view (project and
   bin together, bin alone, pack, the compositing kernel, and
-  `composite_tiles` with its packing and image assembly) and of the
-  encoder's backbone;
+  `composite_tiles` with its packing and image assembly), of the encoder's
+  backbone and, where the model has one, of the epipolar transformer and
+  its parts (sampling, depth encoding, the attention stack, the upscale
+  with its two 7x7 refinement convolutions);
 * the device kernels that take the most time, by name.
 
 With `--train` it builds the training step of `train_scene.py` instead
@@ -34,6 +37,10 @@ import time
 
 import torch
 
+from ..config import EXPERIMENTS
+from ..geometry.epipolar_lines import get_depth
+from ..model.encoder.epipolar.epipolar_sampler import collect_other_views, sample_along_epipolar_lines
+from ..model.encoder.epipolar.epipolar_transformer import conv_nhwc
 from ..ops.rasterizer.binning import bin_gaussians
 from ..ops.rasterizer.composite import composite_tiles, pack_columns
 from ..ops.rasterizer.composite_kernel import composite_core
@@ -75,8 +82,47 @@ def profile_and_report(run, label: str, reference_ms: float, card: str, out) -> 
             f.write(events.table(sort_by="self_device_time_total", row_limit=200, max_name_column_width=120))
 
 
-def profile_train(card: str, out) -> None:
-    ts = make_train_scene()
+def epipolar_transformer_stages(scene) -> dict[str, float]:
+    """CUDA-event milliseconds of the epipolar transformer and its parts
+    on the scene's context views, without autograd."""
+    encoder = scene.wrapper.encoder
+    et = encoder.epipolar_transformer
+    context = scene.wrapper.data_shim(scene.batch)["context"]
+    cams = [context[k] for k in ("extrinsics", "intrinsics", "near", "far")]
+    with torch.no_grad():
+        features = encoder.backbone_projection(encoder.backbone(context["image"]))
+        b, v, h, w, c = features.shape
+        down = conv_nhwc(et.downscaler, features.reshape(b * v, h, w, c))
+        low = down.reshape(b, v, *down.shape[1:])
+        sampling = sample_along_epipolar_lines(low, *cams, et.cfg.num_samples)
+        rays = (sampling.origins[:, :, None, :, None], sampling.directions[:, :, None, :, None])
+        others = [collect_other_views(x, v)[:, :, :, None, None] for x in cams[:2]]
+        q = low.reshape(-1, 1, c)
+        kv = sampling.features.permute(0, 1, 3, 4, 2, 5).reshape(q.shape[0], -1, c)
+        hl, wl = low.shape[2:4]
+        up = conv_nhwc(et.upscaler, low.reshape(b * v, hl, wl, c))
+        up_nchw = up.permute(0, 3, 1, 2).contiguous()
+        attention = et.transformer.layers[0][0]
+        feed_forward = et.transformer.layers[0][1]
+        return {
+            "all": cuda_ms(lambda: et(features, *cams)),
+            "downscale": cuda_ms(lambda: conv_nhwc(et.downscaler, features.reshape(b * v, h, w, c))),
+            "sampling": cuda_ms(lambda: sample_along_epipolar_lines(low, *cams, et.cfg.num_samples)),
+            "sample depths": cuda_ms(lambda: get_depth(*rays, sampling.xy_sample, *others)),
+            "transformer": cuda_ms(lambda: et.transformer(q, z=kv, b=b, v=v, h=hl, w=wl)),
+            "one cross-attention": cuda_ms(lambda: attention(q, z=kv)),
+            "one image self-attention": cuda_ms(lambda: feed_forward(q, b=b, v=v, h=hl, w=wl)),
+            "upscale": cuda_ms(lambda: conv_nhwc(et.upscaler, low.reshape(b * v, hl, wl, c))),
+            "refinement (two 7x7 convs)": cuda_ms(lambda: conv_nhwc(et.upscale_refinement, up)),
+            "refinement, channels-first contiguous input": cuda_ms(lambda: et.upscale_refinement(up_nchw)),
+            "refinement, channels-last input": cuda_ms(
+                lambda: et.upscale_refinement(up_nchw.contiguous(memory_format=torch.channels_last))
+            ),
+        }
+
+
+def profile_train(card: str, out, model: str) -> None:
+    ts = make_train_scene(model=model)
     wrapper, state = ts.wrapper, ts.state
     batch = ts.batch(1)
     timed_step(ts, batch)  # warm-up
@@ -141,6 +187,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the full profiler table here")
     parser.add_argument("--train", action="store_true", help="profile one training step instead")
+    parser.add_argument("--model", default="re10k", choices=sorted(EXPERIMENTS))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_scene needs a CUDA device")
@@ -149,11 +196,11 @@ def main() -> None:
     card = card_line()
     print(f"card: {card}")
     if args.train:
-        profile_train(card, args.out)
+        profile_train(card, args.out, args.model)
         print(f"card: {card}")
         return
 
-    scene = make_eval_scene()
+    scene = make_eval_scene(model=args.model)
     gaussians, settings, _, _ = scene.run(1)  # warm-up
     gaussians, settings, _, _ = scene.run(0)
     torch.cuda.synchronize()
@@ -199,6 +246,9 @@ def main() -> None:
         vit = cuda_ms(lambda: encoder.backbone.dino(image.reshape(-1, *image.shape[2:])))
         resnet = cuda_ms(lambda: encoder.backbone.resnet_backbone(image))
     print(f"encoder stages, ms: backbone {backbone:.3f} (ViT {vit:.3f}, ResNet {resnet:.3f})")
+    if encoder.cfg.use_epipolar_transformer:
+        print("epipolar transformer, ms: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in epipolar_transformer_stages(scene).items()))
 
     profile_and_report(lambda: scene.run(0), "scene", t_encode + t_choose + t_render, card, args.out)
     print(f"card: {card}")

@@ -2,9 +2,11 @@
 helper that takes a few steps, shared by `chip_smoke.py` and
 `profile_scene.py --train`.
 
-The model is `re10k_ablation_no_epipolar_transformer` at full width with
-its training configuration (MSE + LPIPS, Adam with warm-up, clip 0.5); a
-batch holds two 256x256 context views and four target views per example,
+    python -m pixelsplat_tpu_torch.scripts.train_scene [--model NAME] [--steps N]
+
+The model is one of `config.EXPERIMENTS` at full width (`re10k` unless
+named otherwise) with its training configuration (MSE + LPIPS, Adam with
+warm-up, clip 0.5; for `re10k` the encoder rematerialized); a batch holds two 256x256 context views and four target views per example,
 as the re10k view sampler gives the trainer. The published LPIPS weights
 are not in the repository, so the LPIPS network takes architecture-correct
 random weights (`allow_random_weights`).
@@ -12,18 +14,14 @@ random weights (`allow_random_weights`).
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
 
-from ..config import (
-    NUM_TARGET_VIEWS,
-    TrainingCfg,
-    re10k_ablation_no_epipolar_transformer,
-    re10k_ablation_no_epipolar_transformer_training,
-)
+from ..config import EXPERIMENTS, NUM_TARGET_VIEWS, TrainingCfg
 from ..loss import LossLpipsCfg
 from ..model.encoder.encoder_epipolar import EncoderEpipolarCfg
 from ..ops.rasterizer.composite import assemble_image, pack_columns
@@ -67,17 +65,22 @@ def make_train_scene(
     seed: int = 0,
     image_shape: tuple[int, int] = (256, 256),
     encoder_cfg: Optional[EncoderEpipolarCfg] = None,
-    remat_encoder: bool = False,
+    remat_encoder: Optional[bool] = None,
+    model: str = "re10k",
 ) -> TrainScene:
-    default_encoder, decoder_cfg = re10k_ablation_no_epipolar_transformer()
-    training = re10k_ablation_no_epipolar_transformer_training()
+    """The training scene of experiment `model`; `remat_encoder` overrides
+    the experiment's own setting when given."""
+    model_cfg, training_cfg = EXPERIMENTS[model]
+    default_encoder, decoder_cfg = model_cfg()
+    training = training_cfg()
     losses = tuple(
         dataclasses.replace(c, allow_random_weights=True) if isinstance(c, LossLpipsCfg) else c
         for c in training.loss
     )
-    training = dataclasses.replace(
-        training, loss=losses, train=dataclasses.replace(training.train, remat_encoder=remat_encoder)
-    )
+    train = training.train
+    if remat_encoder is not None:
+        train = dataclasses.replace(train, remat_encoder=remat_encoder)
+    training = dataclasses.replace(training, loss=losses, train=train)
     wrapper = ModelWrapper(
         encoder_cfg or default_encoder, decoder_cfg, device=device,
         optimizer_cfg=training.optimizer, train_cfg=training.train, loss_cfgs=training.loss,
@@ -151,3 +154,24 @@ def timed_step(scene: TrainScene, batch: dict) -> dict[str, float]:
     torch.cuda.synchronize()
     names = ("forward_ms", "backward_ms", "optimizer_ms")
     return {n: marks[i].elapsed_time(marks[i + 1]) for i, n in enumerate(names)}
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description="Take a few training steps on the GPU and print their parts.")
+    parser.add_argument("--model", default="re10k", choices=sorted(EXPERIMENTS))
+    parser.add_argument("--steps", type=int, default=2)
+    parser.add_argument("--batch", type=int, default=1)
+    parser.add_argument("--accumulate", type=int, default=1)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("train_scene needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scene = make_train_scene(model=args.model)
+    for i, parts in enumerate(scene.steps(args.steps, scene.batch(args.batch), accumulate=args.accumulate)):
+        print(f"step {i}: " + ", ".join(f"{k} {float(v):.6g}" for k, v in parts.items()))
+    print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+if __name__ == "__main__":
+    main()

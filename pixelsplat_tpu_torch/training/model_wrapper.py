@@ -133,12 +133,16 @@ class ModelWrapper:
         step: int,
         generator: Optional[torch.Generator] = None,
         u: Optional[torch.Tensor] = None,
+        view_order: Optional[torch.Tensor] = None,
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """(total loss, parts) of one batch at the encoder's current weights.
 
         The depth-sampling uniforms come from `u` ((b, v, h*w, surfaces,
-        gpp)) when given, else from `generator`; they are drawn here, before
-        the encoder, so a rematerialized encoder sees the same samples.
+        gpp)) and, with more than two context views, the order of the
+        epipolar transformer's view embeddings from `view_order` (a
+        permutation of v-1) when given, else from `generator`; both are
+        drawn here, before the encoder, so a rematerialized encoder sees
+        the same draws.
         """
         batch = self.data_shim(batch_to(batch, self.device))
         context, target = batch["context"], batch["target"]
@@ -151,8 +155,11 @@ class ModelWrapper:
                 generator=generator, device=self.device,
             )
 
+        if view_order is None and v > 2 and cfg.use_epipolar_transformer:
+            view_order = torch.randperm(v - 1, generator=generator, device=self.device)
+
         def encode(context, u):
-            return self.encoder(context, step, False, u=u.to(self.device))
+            return self.encoder(context, step, False, u=u.to(self.device), view_order=view_order)
 
         if self.train_cfg.remat_encoder:
             gaussians = checkpoint(encode, context, u, use_reentrant=False)
@@ -237,10 +244,12 @@ class ModelWrapper:
             step: int,
             generator: Optional[torch.Generator] = None,
             u: Optional[torch.Tensor] = None,
+            view_order: Optional[torch.Tensor] = None,
         ) -> Union[Gaussians, GaussiansSoA]:
             batch = self.data_shim(batch_to(batch, self.device))
             return self.encoder(
-                batch["context"], step, deterministic, pack_soa=pack_soa, u=u, generator=generator
+                batch["context"], step, deterministic, pack_soa=pack_soa, u=u, generator=generator,
+                view_order=view_order,
             )
 
         return encode_fn
