@@ -43,7 +43,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
    - reference: gradients of a 64x64 batch, card against CPU;
    - timing: encode, render per view, the step's forward, backward and
      optimizer, each kernel and its plain version (CUDA events after
-     warm-up), peak memory.
+     warm-up), each compositing kernel also on its view's longest tile
+     alone (the tile with the most processed chunks, the other tiles'
+     counts set to 0), peak memory. The kernel lines give each view's
+     processed chunks: sum, mean and max per tile.
 5. tools: the row-major copy kernel against `clone`, bit for bit, on the
    segment-sum bench's (820,224, 24) 16-bit table, contiguous and
    transposed; the four segment sums of `scripts/bench_segment_sum.py`
@@ -195,6 +198,7 @@ def check_bwd_kernel_against_plain(v, inp) -> tuple[float, float, int]:
     absolute error, both over all rows, and how many tiles' disagreements
     were traced to a pair at a threshold."""
     from pixelsplat_tpu_torch.scripts import check_composite_bwd
+    from pixelsplat_tpu_torch.scripts.check_composite_bwd import chunk_stats
 
     result = check_composite_bwd.compare(inp, BWD_KERNEL_RTOL)
     d_kernel = result["d_kernel"]
@@ -205,7 +209,7 @@ def check_bwd_kernel_against_plain(v, inp) -> tuple[float, float, int]:
         f"composite_bwd view {v}: max err / column max {result['max_rel_err']:.3g} over all "
         f"{d_kernel.shape[0]} rows; {len(result['tiles'])} tiles had to be explained, "
         f"{result['residual_rel_err']:.3g} with their share taken out; largest column max |grad| "
-        f"{float(result['col_max'].max()):.3g}, chunks {int(inp['n_proc'].sum())}, "
+        f"{float(result['col_max'].max()):.3g}, {chunk_stats(inp['n_proc'])}, "
         f"list slots {int(inp['tiles'].counts.sum())}",
     )
     for line in check_composite_bwd.report(result):
@@ -366,6 +370,7 @@ def check_kernel_against_plain(composite_kernel, v, tiles, table, chunk, tiles_x
     is excused only when its max T after the deciding chunk lies within
     1e-6 relative of the 1e-4 exit threshold."""
     import torch
+    from pixelsplat_tpu_torch.scripts.check_composite_bwd import chunk_stats
 
     args = (table, tiles.flat, tiles.block_start, tiles.counts, tiles_x, chunk)
     acc_k, trans_k, n_k = composite_kernel.composite_core(*args)
@@ -394,7 +399,7 @@ def check_kernel_against_plain(composite_kernel, v, tiles, table, chunk, tiles_x
         "kernels",
         f"composite_fwd view {v}: max |acc| err {err_acc:.3g}, max |T| err {err_trans:.3g}, "
         f"n_proc equal on {int((~differ).sum())}/{differ.numel()} tiles, "
-        f"list slots {int(tiles.counts.sum())}, chunks {int(n_k.sum())}",
+        f"list slots {int(tiles.counts.sum())}, {chunk_stats(n_k)}",
     )
     return max(err_acc, err_trans), n_k
 
@@ -443,6 +448,7 @@ def model_phases(torch, kernels, model, seed):
     what the kernels' record needs and, for the tools phase, the first
     view's compositor inputs."""
     from pixelsplat_tpu_torch.ops.rasterizer import composite_kernel
+    from pixelsplat_tpu_torch.scripts.check_composite_bwd import longest_tile_only
     from pixelsplat_tpu_torch.scripts.eval_scene import TARGET_VIEWS, card_line, cuda_ms, make_eval_scene, view_inputs
     from pixelsplat_tpu_torch.scripts.train_scene import backward_inputs, timed_step
 
@@ -494,15 +500,18 @@ def model_phases(torch, kernels, model, seed):
     card = card_line()
     encode_ms = cuda_ms(lambda: scene.encode(scene.batch, False, 0), iters=5)
     render_ms = cuda_ms(lambda: scene.render(gaussians, settings), iters=5) / TARGET_VIEWS
-    k_ms, p_ms, bounds = [], [], []
+    k_ms, p_ms, bounds, long_ms = [], [], [], []
     for (_, tiles, table), n_k in zip(inputs, n_proc_views):
         args = (table, tiles.flat, tiles.block_start, tiles.counts, tiles_x, chunk)
         k_ms.append(cuda_ms(lambda: composite_kernel.composite_core(*args), iters=50))
         p_ms.append(cuda_ms(lambda: composite_kernel.composite_core_plain(*args), iters=5))
         bounds.append(composite_bound_ms(tiles, table, n_k, chunk))
-    fwd = summarize(k_ms, p_ms, bounds)
+        one = args[:3] + (longest_tile_only(tiles.counts, n_k)[0],) + args[4:]
+        long_ms.append(cuda_ms(lambda: composite_kernel.composite_core(*one), iters=50))
+    fwd = summarize(k_ms, p_ms, bounds) + (sum(long_ms) / len(long_ms),)
     phase("timing", f"{model} | {card} | encode {encode_ms:.3f} ms | render {render_ms:.3f} ms/view | "
           f"composite_fwd {fwd[0]:.4f} ms/launch (per view {[round(x, 4) for x in k_ms]}), "
+          f"longest tile alone {fwd[4]:.4f} ms (per view {[round(x, 4) for x in long_ms]}), "
           f"plain {fwd[1]:.3f} ms, bound {fwd[2]:.4f} ms ({fwd[3]}) | peak memory {eval_peak:.2f} GiB")
     small_input_reference(torch, scene, seed + 2)
     _, tiles0, table0 = inputs[0]
@@ -518,13 +527,15 @@ def model_phases(torch, kernels, model, seed):
     bwd_errs = [check_bwd_kernel_against_plain(v, inp) for v, inp in enumerate(bwd_inputs)]
     bwd_err, bwd_abs_err, bwd_tiles = (f(e[i] for e in bwd_errs) for i, f in enumerate((max, max, sum)))
 
-    bk_ms, bp_ms, b_bounds = [], [], []
+    bk_ms, bp_ms, b_bounds, b_long_ms = [], [], [], []
     for inp in bwd_inputs:
         args = bwd_args(inp)
         bk_ms.append(cuda_ms(lambda: composite_kernel.composite_bwd(*args), iters=20))
         bp_ms.append(cuda_ms(lambda: composite_kernel.composite_bwd_plain(*args), iters=2, warmup=1))
         b_bounds.append(composite_bwd_bound_ms(inp))
-    bwd = summarize(bk_ms, bp_ms, b_bounds)
+        one = args[:3] + longest_tile_only(inp["tiles"].counts, inp["n_proc"]) + args[5:]
+        b_long_ms.append(cuda_ms(lambda: composite_kernel.composite_bwd(*one), iters=20))
+    bwd = summarize(bk_ms, bp_ms, b_bounds) + (sum(b_long_ms) / len(b_long_ms),)
     batch1 = ts.batch(1)
     ts.state.step = 0
     timed_step(ts, batch1)  # warm-up
@@ -536,6 +547,7 @@ def model_phases(torch, kernels, model, seed):
           f"forward {step_ms['forward_ms']:.3f} ms, backward {step_ms['backward_ms']:.3f} ms, "
           f"optimizer {step_ms['optimizer_ms']:.3f} ms, peak memory {timed_peak:.2f} GiB | "
           f"composite_bwd {bwd[0]:.4f} ms/launch (per view {[round(x, 4) for x in bk_ms]}), "
+          f"longest tile alone {bwd[4]:.4f} ms (per view {[round(x, 4) for x in b_long_ms]}), "
           f"plain {bwd[1]:.3f} ms, bound {bwd[2]:.4f} ms ({bwd[3]}) | "
           f"peak memory GiB by kind of step: {({k: round(v, 2) for k, v in train_peaks.items()})}")
     small_gradient_reference(torch, ts, seed + 3)
@@ -708,6 +720,7 @@ def main() -> None:
                 "composite_fwd", "composite_fwd.cu", "pixelsplat_tpu/ops/rasterizer/pallas_composite.py:281",
                 max_abs_err=max(r["fwd_err"] for r in results.values()), ms=main_model["fwd"][0],
                 plain_ms=main_model["fwd"][1], bound_ms=main_model["fwd"][2], bound_by=main_model["fwd"][3],
+                longest_tile_ms=main_model["fwd"][4],
                 library_ms=None, ms_by_model={m: r["fwd"][0] for m, r in results.items()},
             ),
             entry(
@@ -718,6 +731,7 @@ def main() -> None:
                 max_rel_err=max(r["bwd_err"] for r in results.values()),
                 threshold_tiles=sum(r["bwd_tiles"] for r in results.values()), ms=main_model["bwd"][0],
                 plain_ms=main_model["bwd"][1], bound_ms=main_model["bwd"][2], bound_by=main_model["bwd"][3],
+                longest_tile_ms=main_model["bwd"][4],
                 library_ms=None, ms_by_model={m: r["bwd"][0] for m, r in results.items()},
             ),
             entry(

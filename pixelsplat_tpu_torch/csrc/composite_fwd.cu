@@ -22,26 +22,37 @@
 // Outputs: acc (T, 8, 256) with colours in channels 0-5 and zeros in 6-7,
 // trans (T, 256), n_proc (T,) int32.
 //
-// Design: one block per tile, one thread per pixel (256 threads). For each
-// chunk the block gathers the chunk's rows into shared memory (128 x 48 B,
-// read as float4s), then every thread walks them in order; all threads
-// read the same row at the same time, which shared memory broadcasts. The
-// exit vote is __syncthreads_or, which is also the barrier that frees the
-// shared rows for the next chunk. The TPU kernel's u16 hi/lo row split,
-// triangular-matmul prefix product and bf16 coefficient split exist for
-// the TPU's gather and matrix unit and have no counterpart here.
+// Design: one block per tile, one thread per pixel (256 threads). The
+// block walks its tile's chunks in order; every thread walks each chunk's
+// 128 rows from shared memory, all threads reading the same row at the same
+// time, which shared memory broadcasts. The exit vote is __syncthreads_or,
+// the one barrier per chunk. It decides n_proc for the whole tile, which
+// the backward replays exactly, so the tile stays in one block. The TPU
+// kernel's u16 hi/lo row split, triangular-matmul prefix product and bf16
+// coefficient split exist for the TPU's gather and matrix unit and have no
+// counterpart here.
 //
 // Bound on this card: compositing evaluates every processed (slot, pixel)
-// pair: one expf plus about 32 FP32 operations (offset, quadratic form,
+// pair: one expf plus about 31 FP32 operations (offset, quadratic form,
 // clamps, six colour FMAs, transmittance update). At the evaluation
-// scene's ~0.4-0.8M list slots per view that is ~1e8-2e8 evaluations,
-// ~3-7 GFLOP against the H100's 67 TFLOP/s of FP32 (and 1 expf each
+// scene's ~0.13-0.4M list slots per view that is ~0.3-1e8 evaluations,
+// ~1-3 GFLOP against the H100's 67 TFLOP/s of FP32 (and 1 expf each
 // against the SFUs' ~4 Tops/s), while the bytes it must move (the 48 B
 // table rows, the 4 B ids, 9 KB of output per tile) take a few
-// microseconds at 3.35 TB/s. So it is compute-bound. Making it fast is
-// later work: cp.async double buffering of the next chunk's rows, more
-// than one tile per block so fewer SMs idle behind early-exiting tiles,
-// and FP16x2 / fast-math exponent evaluation where accuracy allows.
+// microseconds at 3.35 TB/s. So it is compute-bound. The stage ablation
+// (composite_fwd_ablation.cu) seemed to say that staging each chunk's rows
+// (dependent loads: the id, then the 48 B row, nothing in flight while the
+// tile composited) took over half of the kernel, so composite_fwd_body.cuh
+// now pipelines it: chunk i+1's rows are copied with cp.async into a second
+// shared buffer, and chunk i+2's ids loaded, while chunk i composites. On
+// the H100 that gains ~1-2 %: the ablation's `-gather` reads one row for
+// every slot, which lets the compiler hoist that row's whole per-slot
+// arithmetic out of the loop, so it timed the arithmetic, not the gather.
+// What bounds the kernel is issuing the per-slot instructions of the SMs
+// that hold two of a view's longest tiles (256 tiles on 132 SMs); two
+// pixels per thread (fewer instructions, half the warps) and a warp vote
+// that skips unseen slots were both slower. A chunk-parallel forward, as
+// the backward now is, is what is left.
 
 #include "composite_fwd_body.cuh"
 
@@ -60,7 +71,7 @@ composite_fwd_kernel(const float4* __restrict__ table,
                      float* __restrict__ acc_out,
                      float* __restrict__ trans_out,
                      int* __restrict__ nproc_out) {
-  __shared__ float4 rows[kMaxChunk * kRowVec];
+  __shared__ float4 rows[kRowsShared];
   composite_tile<0u, true>(table, flat, block_start, counts, tiles_x, chunk,
                            acc_out, trans_out, nproc_out, rows);
 }

@@ -28,7 +28,7 @@ ablation_kernel(const float4* __restrict__ table, const int* __restrict__ flat,
                 const int* __restrict__ counts, int tiles_x, int chunk,
                 float* __restrict__ acc_out, float* __restrict__ trans_out,
                 int* __restrict__ nproc_out) {
-  __shared__ float4 rows[kMaxChunk * kRowVec];
+  __shared__ float4 rows[kRowsShared];
   composite_tile<kDrop, kExitVote>(table, flat, block_start, counts, tiles_x,
                                    chunk, acc_out, trans_out, nproc_out, rows);
 }

@@ -5,11 +5,22 @@
 //
 // composite_tile<kDrop, kExitVote> is called by every thread of a
 // 256-thread block (one thread per pixel) with `rows`, a shared-memory
-// buffer of kMaxChunk * kRowVec float4s. kDrop = 0 and kExitVote = true
-// give the production function. Each bit of kDrop replaces one stage of
-// the per-slot work by a stub of the same shape, numerically wrong on
-// purpose, to cost that stage; kExitVote = false walks all of a tile's
-// chunks with a plain barrier and no exit vote.
+// buffer of kRowsShared float4s: two stages of kMaxChunk * kRowVec.
+// kDrop = 0 and kExitVote = true give the production function. Each bit of
+// kDrop replaces one stage of the per-slot work by a stub of the same
+// shape, numerically wrong on purpose, to cost that stage; kExitVote =
+// false walks all of a tile's chunks with a plain barrier and no exit vote.
+//
+// The gather is a two-stage pipeline. While the block composites chunk i
+// from one stage, each thread has its 16-byte cp.async copies of chunk
+// i+1's rows in flight into the other stage, and plain loads of chunk
+// i+2's ids in flight into registers (a row's address depends on its id,
+// so the ids run one chunk further ahead). Before the chunk's barrier each
+// thread waits for its own copies; the barrier (the exit vote) then makes
+// chunk i+1's rows visible to the block and frees chunk i's stage for
+// chunk i+2. So there is one barrier per chunk, as without the pipeline.
+// A tile that exits after chunk i has fetched chunk i+1's rows for
+// nothing: 6 KB.
 
 #pragma once
 
@@ -27,6 +38,10 @@ constexpr int kColours = 6;
 constexpr float kTransEps = 1e-4f;
 constexpr float kMaxAlpha = 0.99f;
 constexpr float kMinAlpha = 1.0f / 255.0f;
+constexpr int kChunkVecs = kMaxChunk * kRowVec;  // float4s of one chunk's rows
+constexpr int kRowsShared = 2 * kChunkVecs;      // two pipeline stages
+// Row copies per thread and chunk: 128 rows x 3 float4s over 256 threads.
+constexpr int kCopies = (kChunkVecs + kPixels - 1) / kPixels;
 
 // Stages that the ablation kernel can drop.
 constexpr unsigned kDropGather = 1u;         // no staging of the chunk's rows: every slot reads row 0
@@ -35,6 +50,45 @@ constexpr unsigned kDropExpPower = 4u;       // no expf, no alpha tests
 constexpr unsigned kDropTransmittance = 8u;  // no running product
 constexpr unsigned kDropColours = 16u;       // no colour reads or FMAs
 constexpr unsigned kDropEverything = 31u;
+
+// 16-byte copy from device to shared memory that bypasses L1 and does not
+// block the thread (cp.async.cg); waited for by cp_async_wait_all.
+__device__ __forceinline__ void cp_async_16(float4* smem, const float4* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// This thread's share of one chunk's row gather: element e = p + k * 256
+// of the chunk's float4s is part e % 3 of slot e / 3's row.
+struct ChunkCopies {
+  int id[kCopies];
+
+  // Starts the loads of the ids this thread's copies of chunk `i` need.
+  __device__ __forceinline__ void load_ids(const int* __restrict__ flat, long long base, int i,
+                                           int chunk, int p) {
+    const int* ids = flat + base + static_cast<long long>(i) * chunk;
+#pragma unroll
+    for (int k = 0; k < kCopies; ++k) {
+      const int e = p + k * kPixels;
+      id[k] = e < chunk * kRowVec ? __ldg(ids + e / kRowVec) : 0;
+    }
+  }
+
+  // Issues the copies of those rows into `stage`.
+  __device__ __forceinline__ void copy_rows(const float4* __restrict__ table, float4* stage, int chunk,
+                                            int p) const {
+#pragma unroll
+    for (int k = 0; k < kCopies; ++k) {
+      const int e = p + k * kPixels;
+      if (e < chunk * kRowVec)
+        cp_async_16(stage + e, table + static_cast<long long>(id[k]) * kRowVec + (e % kRowVec));
+    }
+  }
+};
 
 template <unsigned kDrop, bool kExitVote>
 __device__ __forceinline__ void composite_tile(
@@ -61,20 +115,31 @@ __device__ __forceinline__ void composite_tile(
     __syncthreads();
   }
 
+  ChunkCopies next;  // ids of the chunk whose rows are copied next
+  if (!(kDrop & kDropGather) && n_chunks > 0) {
+    // Prologue: chunk 0's rows into stage 0, chunk 1's ids on their way.
+    next.load_ids(flat, base, 0, chunk, p);
+    next.copy_rows(table, rows, chunk, p);
+    if (n_chunks > 1) next.load_ids(flat, base, 1, chunk, p);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
   int done = 0;
   bool go = n_chunks > 0;
   while (go) {
+    const float4* stage = rows;
     if (!(kDrop & kDropGather)) {
-      const int* ids = flat + base + static_cast<long long>(done) * chunk;
-      for (int e = p; e < chunk * kRowVec; e += kPixels) {
-        const int slot = e / kRowVec;
-        const int part = e - slot * kRowVec;
-        rows[e] = __ldg(table + static_cast<long long>(__ldg(ids + slot)) * kRowVec + part);
+      stage = rows + (done & 1) * kChunkVecs;
+      if (done + 1 < n_chunks) {
+        // Chunk done+1's rows into the other stage, chunk done+2's ids
+        // into registers, both while this chunk composites.
+        next.copy_rows(table, rows + ((done + 1) & 1) * kChunkVecs, chunk, p);
+        if (done + 2 < n_chunks) next.load_ids(flat, base, done + 2, chunk, p);
       }
-      __syncthreads();
     }
 
-    const float* r = reinterpret_cast<const float*>(rows);
+    const float* r = reinterpret_cast<const float*>(stage);
     for (int c = 0; c < chunk; ++c) {
       const float* g = (kDrop & kDropGather) ? r : r + c * kRow;
       float power;
@@ -103,8 +168,11 @@ __device__ __forceinline__ void composite_tile(
       if (!(kDrop & kDropTransmittance)) trans *= 1.0f - alpha;
     }
     ++done;
+    // This thread's copies of the next chunk have landed; the barrier below
+    // shows them to the block and frees this chunk's stage.
+    if (!(kDrop & kDropGather)) cp_async_wait_all();
     if (kExitVote) {
-      // Block-wide vote; also the barrier before `rows` is overwritten.
+      // Block-wide vote; also the chunk's barrier.
       const int any_open = __syncthreads_or(trans >= kTransEps);
       go = any_open && done < n_chunks;
     } else {

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[str, ctypes.CDLL] = {}  # by source path
 
 
 def _nvcc() -> str:
@@ -57,15 +57,18 @@ def _with_includes(path: Path, seen: set[Path]) -> bytes:
     return data
 
 
-def library_path(name: str) -> Path:
-    source = _with_includes((CSRC / f"{name}.cu").resolve(), set())
+def library_path(name: str, csrc: Path | None = None) -> Path:
+    source = _with_includes((Path(csrc or CSRC) / f"{name}.cu").resolve(), set())
     digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> tuple[Path, str]:
-    """Compile csrc/<name>.cu unless already built; returns (path, nvcc log)."""
-    out = library_path(name)
+def build(name: str, csrc: Path | None = None) -> tuple[Path, str]:
+    """Compile <csrc>/<name>.cu unless already built; returns (path, nvcc
+    log). Another `csrc` (an earlier checkout's, to compare kernels) builds
+    under the same name with its own hash."""
+    csrc = Path(csrc or CSRC)
+    out = library_path(name, csrc)
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -73,7 +76,7 @@ def build(name: str) -> tuple[Path, str]:
     # load a half-written library.
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(csrc / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -93,10 +96,13 @@ def build_all() -> dict[str, tuple[Path, str]]:
         return dict(zip(names, pool.map(build, names)))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built on first use."""
+def load(name: str, csrc: Path | None = None) -> ctypes.CDLL:
+    """The loaded library of <csrc>/<name>.cu (csrc/ by default), built on
+    first use."""
+    csrc = Path(csrc or CSRC)
+    key = f"{csrc.resolve()}/{name}"
     with _lock:
-        if name not in _loaded:
-            path, _ = build(name)
-            _loaded[name] = ctypes.CDLL(str(path))
-        return _loaded[name]
+        if key not in _loaded:
+            path, _ = build(name, csrc)
+            _loaded[key] = ctypes.CDLL(str(path))
+        return _loaded[key]

@@ -18,8 +18,10 @@ returns `d_table (rows, 12)`, the gradient of the parameter table.
 On a CUDA tensor each wrapper launches its kernel (`csrc/composite_fwd.cu`,
 `csrc/composite_bwd.cu`) or raises; on a CPU tensor it runs its plain
 version (`composite_core_plain`, `composite_bwd_plain`).
-`composite_core.launches` and `composite_bwd.launches` count kernel
-launches.
+`composite_core.launches` and `composite_bwd.launches` count calls that
+launch: one call of `composite_bwd` enqueues the backward's four device
+kernels (chunk map, per-chunk sums, scan, per-chunk gradients), whose
+block-to-tile map has `chunk_block_map_plain` as its plain twin.
 """
 
 from __future__ import annotations
@@ -307,11 +309,34 @@ def near_threshold_pairs(
     return near
 
 
+def chunk_block_map_plain(
+    block_start: torch.Tensor,  # (T,) int32
+    counts: torch.Tensor,  # (T,) int32
+    n_proc: torch.Tensor,  # (T,) int32
+    n_blocks: int,
+    chunk: int = 128,
+) -> torch.Tensor:
+    """The backward kernel's map from flat chunk blocks to tiles, in plain
+    PyTorch: (n_blocks,) int32, the tile whose chunk `b - block_start[tile]`
+    block `b` holds when the forward composited that chunk, else -1. Tile t
+    owns blocks block_start[t] + c for c < min(n_proc, ceil(counts / chunk));
+    a budget-dropped tile (counts 0, block_start past the end) owns none."""
+    device = block_start.device
+    n = torch.minimum(n_proc.long(), (counts.long() + chunk - 1) // chunk).clamp(min=0)
+    tile = torch.repeat_interleave(torch.arange(n.numel(), device=device), n)
+    first = torch.cumsum(n, 0) - n  # each tile's first entry in `tile`
+    block = block_start.long()[tile] + torch.arange(tile.numel(), device=device) - first[tile]
+    inside = (block >= 0) & (block < n_blocks)
+    block_map = torch.full((n_blocks,), -1, dtype=torch.int32, device=device)
+    block_map[block[inside]] = tile[inside].to(torch.int32)
+    return block_map
+
+
 @functools.cache
 def _bwd_entry_point():
     """`composite_bwd` of the built library, its C signature declared."""
     fn = kernel_build.load("composite_bwd").composite_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return fn
 
@@ -336,14 +361,19 @@ def _launch_bwd(table, flat, block_start, counts, n_proc, trans, g_acc, g_trans,
         raise ValueError("inputs must be contiguous")
 
     fn = _bwd_entry_point()
+    n_blocks = flat.numel() // chunk
     d_table = torch.zeros_like(table)  # the kernel adds into it
+    # Scratch: per (flat block, pixel) (L, U) of pass A, then the scan's
+    # seeds (log T, S); per flat block its tile or -1.
+    sums = torch.empty((n_blocks, p, 2), dtype=torch.float32, device=table.device)
+    block_map = torch.empty((n_blocks,), dtype=torch.int32, device=table.device)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             table.data_ptr(), flat.data_ptr(), block_start.data_ptr(), counts.data_ptr(),
             n_proc.data_ptr(), trans.data_ptr(), g_acc.data_ptr(), g_trans.data_ptr(),
-            num_tiles, tiles_x, chunk, table.shape[0],
-            d_table.data_ptr(), stream,
+            num_tiles, tiles_x, chunk, table.shape[0], n_blocks,
+            sums.data_ptr(), block_map.data_ptr(), d_table.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"composite_bwd launch failed: cudaError {err}")

@@ -16,6 +16,10 @@ trips. The stages are the CUDA kernel's own; the tool's list maps so:
   exit_vote       the production loop, __syncthreads_or  (tool: while_exit)
   -gather         no staging of the chunk's rows into shared memory;
                   every slot reads row 0                  (tool: -unpack)
+                  (one row for every slot also lets the compiler hoist that
+                  row's per-slot arithmetic out of the loop, so the time it
+                  saves is not the gather's alone: with the gather
+                  pipelined by cp.async, `full` gained ~1-2 % on an H100)
   -power          no quadratic form                      (tool: -basis)
   -exp_power      no expf and no alpha tests             (tool: -exp_power)
   -transmittance  no running product (tool: -log1p, -prefix_mm, -exp_excl

@@ -110,6 +110,23 @@ def closest_pairs(inp: dict, tile: int, k: int = MAX_PAIRS) -> list[dict]:
     return pairs
 
 
+def tile_only(counts: torch.Tensor, n_proc: torch.Tensor, tile: int):
+    """(counts, n_proc) with every tile but `tile` set to 0: the lists that
+    run that tile alone."""
+    only = torch.arange(counts.numel(), device=counts.device) == tile
+    return torch.where(only, counts, 0), torch.where(only, n_proc, 0)
+
+
+def longest_tile_only(counts: torch.Tensor, n_proc: torch.Tensor):
+    """`tile_only` of the tile with the most processed chunks."""
+    return tile_only(counts, n_proc, int(torch.argmax(n_proc)))
+
+
+def chunk_stats(n_proc: torch.Tensor) -> str:
+    n = n_proc.long()
+    return f"processed chunks {int(n.sum())} (mean {float(n.float().mean()):.2f}, max {int(n.max())} per tile)"
+
+
 def describe(pair: dict) -> str:
     return (f"tile {pair['tile']} slot {pair['slot']} (Gaussian {pair['gaussian']}) pixel {pair['pixel']}: "
             f"{pair['units']:.3g} rounding units from {pair['threshold']}; power {pair['power32']:.9g} (f32) "
@@ -125,9 +142,7 @@ def explain_tile(
     single-tile disagreement `diff` (kernel minus plain), the errors before
     and after the nudge relative to `col_max`, the pairs and `explained`."""
     t, table, chunk, tiles_x = inp["tiles"], inp["table"], inp["chunk"], inp["tiles_x"]
-    only = torch.arange(t.counts.numel(), device=table.device) == tile
-    counts = torch.where(only, t.counts, 0)
-    n_proc = torch.where(only, inp["n_proc"], 0)
+    counts, n_proc = tile_only(t.counts, inp["n_proc"], tile)
 
     def both(tb, n, trans):
         args = (tb, t.flat, t.block_start, counts, n, trans, inp["g_acc"], inp["g_trans"], tiles_x, chunk)
