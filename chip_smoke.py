@@ -47,13 +47,20 @@ Phases, each reported on its own lines; any failure exits non-zero:
      alone (the tile with the most processed chunks, the other tiles'
      counts set to 0), peak memory. The kernel lines give each view's
      processed chunks: sum, mean and max per tile.
-5. tools: the row-major copy kernel against `clone`, bit for bit, on the
-   segment-sum bench's (820,224, 24) 16-bit table, contiguous and
-   transposed; the four segment sums of `scripts/bench_segment_sum.py`
-   against each other; every variant of the stage-ablation kernel
+5. tools: the four segment sums of `scripts/bench_segment_sum.py` against
+   each other (the sorted one through the row-major copy kernel, twice);
+   every variant of the stage-ablation kernel
    (`scripts/bench_kernel_ablation.py`) on `re10k`'s first view, `full`
-   against the plain compositor without early exit; their times beside
-   their bounds and library calls.
+   against the plain compositor without early exit; then, through
+   `scripts/bench_tool_kernels.py`, the launch path's raw stream handle
+   against PyTorch's on a side stream, the row-major copy against `clone`
+   bit for bit on each of its routes' layouts (the segment-sum bench's
+   (820,224, 24) 16-bit table contiguous and transposed, its f32 `d_rows`
+   and `csum` tables, a view with padded rows, and small edge cases), each
+   with its route, and y = 2 x against `x * 2` exactly; their times (ms
+   per call from CUDA events in alternating rounds with the library call,
+   device-only ms from `torch.profiler`, host us per call) beside their
+   bounds.
 
 Every kernel's launch count is set to 0 just before each path is driven
 and read just after it. The run ends with the card line, a JSON record of
@@ -563,10 +570,9 @@ def tools_phase(torch, kernels, first_view):
     """The kernel tools' path (the segment-sum bench's checks and the stage
     ablation on `first_view`'s lists), then each tool kernel against its
     plain version and its time beside its bound and library call."""
-    from pixelsplat_tpu_torch.ops import kernel_tools
     from pixelsplat_tpu_torch.ops.rasterizer import composite_kernel
     from pixelsplat_tpu_torch.ops.rasterizer.composite_ablation import composite_core_ablation
-    from pixelsplat_tpu_torch.scripts import bench_kernel_ablation, bench_segment_sum
+    from pixelsplat_tpu_torch.scripts import bench_kernel_ablation, bench_segment_sum, bench_tool_kernels
     from pixelsplat_tpu_torch.scripts.eval_scene import card_line, cuda_ms
 
     table, tiles = first_view["table"], first_view["tiles"]
@@ -588,36 +594,29 @@ def tools_phase(torch, kernels, first_view):
             fail(f"segment sum {name} disagrees with index_add: {err:.3g} > {bench_segment_sum.TOLERANCE[name]}")
     if launches["copy_rows"] != 2 or launches["composite_fwd_ablation"] != len(bench_kernel_ablation.VARIANTS):
         fail(f"the tools' path did not launch its kernels as expected: {launches}")
-
-    # copy_rows against clone, bit for bit, on the bench's 16-bit table.
-    card = card_line()
-    contiguous, transposed = bench_segment_sum.u16_table(d_rows)
-    if tuple(contiguous.shape) != (bench_segment_sum.N, 2 * bench_segment_sum.F):
-        fail(f"the 16-bit table is {tuple(contiguous.shape)}")
-    copy_ms, clone_ms, copy_err = {}, {}, 0
-    for label, x in (("contiguous", contiguous), ("transposed", transposed)):
-        out, plain = kernel_tools.copy_rows(x), kernel_tools.copy_rows_plain(x)
-        copy_err = max(copy_err, int((out.int() - plain.int()).abs().max()))
-        if not (out.is_contiguous() and out.shape == plain.shape and copy_err == 0):
-            fail(f"copy_rows differs from clone on the {label} table by up to {copy_err}")
-        copy_ms[label] = cuda_ms(lambda: kernel_tools.copy_rows(x), iters=20)
-        clone_ms[label] = cuda_ms(lambda: kernel_tools.copy_rows_plain(x), iters=20)
-    copy_bound = 2 * contiguous.numel() * contiguous.element_size() / PEAK_BYTES_PER_S * 1e3
     seg_ms = {name: cuda_ms(fn, iters=10) for name, fn in calls.items()}
-    phase("tools", f"{card} | copy_rows on {tuple(contiguous.shape)} 16-bit: max |difference| from clone {copy_err}; "
-          f"ms/launch {({k: round(v, 4) for k, v in copy_ms.items()})}, "
-          f"clone {({k: round(v, 4) for k, v in clone_ms.items()})}, "
-          f"bound {copy_bound:.4f} ms (bytes) | segment sums ms {({k: round(v, 3) for k, v in seg_ms.items()})}")
-    del d_rows, ids, calls, contiguous, transposed
 
-    # smoke_scale against x * 2, exactly, on random values.
-    x = torch.randn((256, 256), device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
-    if not torch.equal(kernel_tools.smoke_scale(x), kernel_tools.smoke_scale_plain(x)):
+    # copy_rows against clone, bit for bit, on every route's layouts; its
+    # times and smoke_scale's beside their library calls
+    # (`scripts/bench_tool_kernels.py`).
+    card = card_line()
+    if not bench_tool_kernels.raw_stream_matches():
+        fail("the launch path's raw stream handle differs from torch.cuda.current_stream() on a side stream")
+    edges = bench_tool_kernels.check_edges(bench_tool_kernels.edge_layouts("cuda", seed=SEED))
+    phase("tools", "copy_rows on the routes' edge layouts, same bits as clone: "
+          f"{({r['label']: (r['route'], r['equal']) for r in edges})}")
+    del d_rows, ids, calls
+    copy_rows, scale = bench_tool_kernels.bench_tools(bench_tool_kernels.copy_layouts("cuda"), seed=SEED)
+    for r in copy_rows:
+        phase("tools", f"{card} | " + bench_tool_kernels.format_row("copy_rows", r))
+    phase("tools", f"{card} | " + bench_tool_kernels.format_row("smoke_scale", scale)
+          + f" | x * 2 {scale['plain_ms']:.5f} ms")
+    bad = [r["label"] for r in edges + copy_rows if not r["equal"]]
+    if bad:
+        fail(f"copy_rows differs from clone on {bad}")
+    if not scale["equal"]:
         fail("smoke_scale differs from x * 2")
-    scale_ms = cuda_ms(lambda: kernel_tools.smoke_scale(x), iters=200)
-    scale_plain_ms = cuda_ms(lambda: kernel_tools.smoke_scale_plain(x), iters=200)
-    scale_library_ms = cuda_ms(lambda: torch.mul(x, 2.0), iters=200)
-    scale_bound = 2 * x.numel() * 4 / PEAK_BYTES_PER_S * 1e3
+    torch.cuda.empty_cache()
 
     # The stage ablation's table on the first view's lists.
     lists = (table, tiles.flat, tiles.block_start, tiles.counts)
@@ -627,15 +626,12 @@ def tools_phase(torch, kernels, first_view):
     )
     _, _, n_all = composite_core_ablation("full", *lists, tiles_x, chunk)
     full_bound, full_bound_by = composite_bound_ms(tiles, table, n_all, chunk)
-    phase("tools", f"{card} | smoke_scale {scale_ms:.5f} ms/launch, x * 2 {scale_plain_ms:.5f}, torch.mul "
-          f"{scale_library_ms:.5f}, bound {scale_bound:.6f} ms (bytes) | stage ablation on view 0 "
+    phase("tools", f"{card} | segment sums ms {({k: round(v, 3) for k, v in seg_ms.items()})} | stage ablation on view 0 "
           f"({int(tiles.counts.sum())} slots), ms/launch: {({k: round(v, 4) for k, v in variant_ms.items()})}, "
           f"plain without early exit {full_plain_ms:.3f} ms, bound of full {full_bound:.4f} ms ({full_bound_by})")
     return dict(
         launches=launches, full_err=full_err, variant_ms=variant_ms, full_plain_ms=full_plain_ms,
-        full_bound=(full_bound, full_bound_by), copy_ms=copy_ms, clone_ms=clone_ms, copy_err=copy_err,
-        copy_bound=copy_bound,
-        scale=(scale_ms, scale_plain_ms, scale_library_ms, scale_bound), seg_ms=seg_ms,
+        full_bound=(full_bound, full_bound_by), copy_rows=copy_rows, copy_edges=edges, scale=scale, seg_ms=seg_ms,
     )
 
 
@@ -713,7 +709,9 @@ def main() -> None:
         }
 
     main_model = results[RE10K]  # the production model's inputs give the record's times
-    scale_ms, scale_plain_ms, scale_library_ms, scale_bound = tools["scale"]
+    copy_main, copy_transposed = tools["copy_rows"][:2]  # the 16-bit table, contiguous and transposed
+    scale = tools["scale"]
+    layout_keys = ("route", "ms", "library_ms", "device_ms", "library_device_ms", "host_us", "host_us_old", "bound_ms")
     record = {
         "kernels": [
             entry(
@@ -736,10 +734,14 @@ def main() -> None:
             ),
             entry(
                 "copy_rows", "copy_rows.cu", "tools/bench_segment_sum.py:112",
-                max_abs_err=tools["copy_err"], ms=tools["copy_ms"]["contiguous"],
-                plain_ms=tools["clone_ms"]["contiguous"],
-                bound_ms=tools["copy_bound"], bound_by="bytes", library_ms=tools["clone_ms"]["contiguous"],
-                ms_transposed=tools["copy_ms"]["transposed"], library_ms_transposed=tools["clone_ms"]["transposed"],
+                max_abs_err=max(r["max_abs_err"] for r in tools["copy_rows"]), ms=copy_main["ms"],
+                plain_ms=copy_main["library_ms"], bound_ms=copy_main["bound_ms"], bound_by="bytes",
+                library_ms=copy_main["library_ms"], device_ms=copy_main["device_ms"],
+                library_device_ms=copy_main["library_device_ms"], host_us=copy_main["host_us"],
+                ms_transposed=copy_transposed["ms"],
+                library_ms_transposed=copy_transposed["library_ms"],
+                layouts={r["label"]: {k: r[k] for k in layout_keys} for r in tools["copy_rows"]},
+                edge_routes={r["label"]: r["route"] for r in tools["copy_edges"]},
             ),
             entry(
                 "composite_fwd_ablation", "composite_fwd_ablation.cu", "tools/bench_kernel_ablation.py:309",
@@ -749,8 +751,11 @@ def main() -> None:
             ),
             entry(
                 "smoke_scale", "smoke_scale.cu", "tools/pallas_smoke.py:10",
-                max_abs_err=smoke["scale_max_err"], ms=scale_ms, plain_ms=scale_plain_ms, bound_ms=scale_bound,
-                bound_by="bytes", library_ms=scale_library_ms,
+                max_abs_err=max(smoke["scale_max_err"], scale["max_abs_err"]), ms=scale["ms"],
+                plain_ms=scale["plain_ms"], bound_ms=scale["bound_ms"], bound_by="bytes",
+                library_ms=scale["library_ms"], device_ms=scale["device_ms"],
+                library_device_ms=scale["library_device_ms"], host_us=scale["host_us"],
+                host_us_old=scale["host_us_old"],
             ),
         ]
     }

@@ -7,7 +7,10 @@ _force_row_major_u16` (a row-major copy of a 2-D table of any strides).
 On a CUDA tensor each launches its kernel (`csrc/smoke_scale.cu`,
 `csrc/copy_rows.cu`) or raises; on a CPU tensor it runs its plain version
 (`smoke_scale_plain`, `copy_rows_plain`). `smoke_scale.launches` and
-`copy_rows.launches` count kernel launches.
+`copy_rows.launches` count kernel launches. `copy_rows_route` picks the
+copy kernel's route from the input's layout. Every wrapper launches through
+`_launch`, whose per-call host work is the checks, one allocation and the
+ctypes call: both kernels are so short that a call's time is the host's.
 
 The `segment_sum_*` functions are the four ways `scripts/
 bench_segment_sum.py` times the per-Gaussian gradient sum (rows (n, f) f32
@@ -24,15 +27,42 @@ import torch
 from .. import kernel_build
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _require_cuda_or_cpu(x: torch.Tensor, name: str) -> bool:
     """True for a CUDA tensor, False for a CPU one; anything else raises."""
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name} runs on CUDA or CPU tensors, not {x.device}")
-    return x.device.type == "cuda"
+    if x.is_cuda:
+        return True
+    if x.is_cpu:
+        return False
+    raise ValueError(f"{name} runs on CUDA or CPU tensors, not {x.device}")
+
+
+# Bound once, since the launch path reads them on every call (None where
+# PyTorch was built without CUDA, so no tensor can reach them).
+_cuda_get_device = getattr(torch._C, "_cuda_getDevice", None)
+_cuda_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_raw_stream(index: int) -> int:
+    """The raw handle of the current stream of CUDA device `index`, read
+    without building a `torch.cuda.Stream` (the call Triton's launcher
+    makes); equal to `torch.cuda.current_stream(index).cuda_stream`."""
+    return _cuda_raw_stream(index)
+
+
+def _launch(name: str, entry, index: int, *args) -> None:
+    """The launch path the wrappers share: calls a kernel's C entry point
+    `entry(*args, stream)` on the current stream of CUDA device `index`,
+    entering a device guard only when that is not the current device, and
+    raises if the launch was refused (the entry point returns the launch's
+    error code). It builds no `torch.cuda.Stream` and the entry points'
+    ctypes types are bound once, when the library is loaded."""
+    if index == _cuda_get_device():
+        err = entry(*args, _cuda_raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = entry(*args, _cuda_raw_stream(index))
+    if err:
+        raise RuntimeError(f"{name} launch failed: error {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -53,15 +83,22 @@ def _smoke_entry_point():
 
 def smoke_scale(x: torch.Tensor) -> torch.Tensor:
     """2 * x for a contiguous float32 tensor of any shape."""
-    if not _require_cuda_or_cpu(x, "smoke_scale"):
-        return smoke_scale_plain(x)
-    if x.dtype != torch.float32 or not x.is_contiguous():
+    if not x.is_cuda:
+        if x.is_cpu:
+            return smoke_scale_plain(x)
+        raise ValueError(f"smoke_scale runs on CUDA or CPU tensors, not {x.device}")
+    if x.dtype is not torch.float32 or not x.is_contiguous():
         raise ValueError(f"smoke_scale takes a contiguous float32 tensor, got {x.dtype}, strides {x.stride()}")
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _smoke_entry_point()(x.data_ptr(), y.data_ptr(), x.numel(), _stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"smoke_scale launch failed: cudaError {err}")
+    index = x.get_device()
+    if index == _cuda_get_device():
+        # `_launch`'s fast path written out: this call's time is all host
+        # work, and on an H100's host the helper's call was a measurable
+        # share of it.
+        if err := _smoke_entry_point()(x.data_ptr(), y.data_ptr(), x.numel(), _cuda_raw_stream(index)):
+            raise RuntimeError(f"smoke_scale launch failed: error {err}")
+    else:
+        _launch("smoke_scale", _smoke_entry_point(), index, x.data_ptr(), y.data_ptr(), x.numel())
     smoke_scale.launches += 1
     return y
 
@@ -77,11 +114,35 @@ def copy_rows_plain(x: torch.Tensor) -> torch.Tensor:
     return x.clone(memory_format=torch.contiguous_format)
 
 
+# The kernel's routes; a route's index here is its code in csrc/copy_rows.cu.
+COPY_ROUTES = ("general", "flat", "column_major")
+
+
+def copy_rows_route(
+    shape: tuple[int, int], strides: tuple[int, int], itemsize: int, in_ptr: int, out_ptr: int
+) -> str:
+    """The `copy_rows` kernel's route for an (n, m) input of these strides
+    (in elements), element size and addresses, chosen by layout alone:
+    "flat" for a row-major input at a 16-byte boundary (a streaming copy),
+    "column_major" where each column is a contiguous run (stride0 == 1,
+    stride1 >= n: a tile of rows is staged through shared memory), and
+    "general" for anything else (each element read through both strides).
+    The output of every route is row-major from a 16-byte boundary."""
+    (n, m), (stride0, stride1) = shape, strides
+    if out_ptr % 16:
+        return "general"
+    if stride1 == 1 and stride0 == m and in_ptr % 16 == 0:
+        return "flat"
+    if stride0 == 1 and stride1 >= n:
+        return "column_major"
+    return "general"
+
+
 @functools.cache
 def _copy_rows_library():
     lib = kernel_build.load("copy_rows")
     lib.copy_rows.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     lib.copy_rows.restype = ctypes.c_int
     lib.segment_sum_atomic.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
@@ -94,20 +155,19 @@ def copy_rows(x: torch.Tensor) -> torch.Tensor:
     `x` of any strides whose elements take 2, 4 or 8 bytes."""
     if x.ndim != 2:
         raise ValueError(f"copy_rows takes a 2-D tensor, got shape {tuple(x.shape)}")
-    if x.element_size() not in (2, 4, 8):
+    itemsize = x.element_size()
+    if itemsize not in (2, 4, 8):
         raise ValueError(f"copy_rows takes elements of 2, 4 or 8 bytes, got {x.dtype}")
     if not _require_cuda_or_cpu(x, "copy_rows"):
         return copy_rows_plain(x)
-    n, m = x.shape
-    out = torch.empty((n, m), dtype=x.dtype, device=x.device)
-    if out.data_ptr() % 16:
+    shape, strides = x.shape, x.stride()
+    # Cheaper on the host than torch.empty from shape, dtype and device.
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    in_ptr, out_ptr = x.data_ptr(), out.data_ptr()
+    if out_ptr % 16:
         raise RuntimeError("copy_rows: the output is not 16-byte aligned")
-    with torch.cuda.device(x.device):
-        err = _copy_rows_library().copy_rows(
-            x.data_ptr(), out.data_ptr(), n, m, x.stride(0), x.stride(1), x.element_size(), _stream(x.device)
-        )
-    if err != 0:
-        raise RuntimeError(f"copy_rows launch failed: cudaError {err}")
+    route = COPY_ROUTES.index(copy_rows_route(shape, strides, itemsize, in_ptr, out_ptr))
+    _launch("copy_rows", _copy_rows_library().copy_rows, x.get_device(), in_ptr, out_ptr, *shape, *strides, itemsize, route)
     copy_rows.launches += 1
     return out
 
@@ -157,10 +217,6 @@ def segment_sum_atomic(rows: torch.Tensor, ids: torch.Tensor, num_rows: int) -> 
         raise ValueError("segment_sum_atomic takes contiguous (n,) int32 ids on the rows' device")
     n, f = rows.shape
     out = torch.zeros((num_rows, f), dtype=torch.float32, device=rows.device)
-    with torch.cuda.device(rows.device):
-        err = _copy_rows_library().segment_sum_atomic(
-            rows.data_ptr(), ids.data_ptr(), out.data_ptr(), n, f, _stream(rows.device)
-        )
-    if err != 0:
-        raise RuntimeError(f"segment_sum_atomic launch failed: cudaError {err}")
+    _launch("segment_sum_atomic", _copy_rows_library().segment_sum_atomic, rows.get_device(),
+            rows.data_ptr(), ids.data_ptr(), out.data_ptr(), n, f)
     return out

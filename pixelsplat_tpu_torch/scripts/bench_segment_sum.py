@@ -1,5 +1,5 @@
-"""Timings of the per-Gaussian gradient sum, four ways, and of the
-row-major copy kernel, on the GPU.
+"""Timings of the per-Gaussian gradient sum, four ways, on the GPU (the
+row-major copy kernel alone: `bench_tool_kernels.py`).
 
     python -m pixelsplat_tpu_torch.scripts.bench_segment_sum
 
@@ -35,13 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.kernel_tools import (
-    copy_rows,
-    copy_rows_plain,
-    segment_sum_atomic,
-    segment_sum_index_add,
-    segment_sum_sorted,
-)
+from ..ops.kernel_tools import copy_rows, segment_sum_atomic, segment_sum_index_add, segment_sum_sorted
 from .eval_scene import card_line, cuda_ms
 
 N, F, ROWS = 820224, 12, 393218
@@ -107,15 +101,6 @@ def main() -> None:
             raise SystemExit(f"FAIL: {name} disagrees with index_add: {err:.3g} > {TOLERANCE[name]}")
     for name, fn in calls.items():
         print(f"{name:20s} {cuda_ms(fn, iters=10):8.3f} ms", flush=True)
-
-    contiguous, transposed = u16_table(d_rows)
-    bound_ms = 2 * contiguous.numel() * contiguous.element_size() / 3.35e12 * 1e3
-    for label, table in (("contiguous", contiguous), ("transposed", transposed)):
-        if not torch.equal(copy_rows(table), copy_rows_plain(table)):
-            raise SystemExit(f"FAIL: copy_rows differs from clone on the {label} table")
-        print(f"copy_rows {label:11s} {cuda_ms(lambda: copy_rows(table), iters=20):8.4f} ms | "
-              f"clone {cuda_ms(lambda: copy_rows_plain(table), iters=20):8.4f} ms | "
-              f"bound {bound_ms:.4f} ms (bytes)", flush=True)
     print(f"card: {card}", flush=True)
 
 

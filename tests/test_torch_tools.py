@@ -30,7 +30,7 @@ from pixelsplat_tpu_torch import kernel_build
 from pixelsplat_tpu_torch.ops import kernel_tools
 from pixelsplat_tpu_torch.ops.rasterizer import composite_ablation
 from pixelsplat_tpu_torch.ops.rasterizer import composite_kernel as pt_kernel
-from pixelsplat_tpu_torch.scripts import bench_kernel_ablation, bench_segment_sum, kernel_smoke
+from pixelsplat_tpu_torch.scripts import bench_kernel_ablation, bench_segment_sum, bench_tool_kernels, kernel_smoke
 
 from test_torch_encoder import t
 from test_torch_rasterizer import composite_case
@@ -78,6 +78,76 @@ def test_copy_rows_rejects_what_the_kernel_does_not_take():
         kernel_tools.copy_rows(torch.zeros((2, 3, 4)))
     with pytest.raises(ValueError, match="2, 4 or 8 bytes"):
         kernel_tools.copy_rows(torch.zeros((2, 3), dtype=torch.uint8))
+
+
+# The copy kernel's route for each layout `bench_tool_kernels` times
+# (built at n = 384 rows, no multiple of a 256-row tile) and for each edge
+# layout it checks on the card.
+TIMED_ROUTES = ["flat", "column_major", "column_major", "column_major", "general"]
+EDGE_ROUTES = {
+    "f64 (1001, 5) contiguous": "flat",
+    "f64 (1001, 5) transposed": "column_major",
+    "f32 (777, 1) contiguous": "flat",
+    "f32 (777, 1) column view": "column_major",
+    "int16 (1001, 24) row-major, 2 bytes off a 16-byte boundary": "general",
+    "int16 (1001, 24) column-major, 2 bytes off": "column_major",
+    "f32 (300, 200) transposed, in column groups": "column_major",
+    "f32 (5, 3) column-major": "column_major",
+}
+
+
+@pytest.fixture(scope="module")
+def copy_cases():
+    timed = bench_tool_kernels.copy_layouts("cpu", n=384)
+    return {**{i: x for i, x in enumerate(timed.values())}, **bench_tool_kernels.edge_layouts("cpu")}
+
+
+@pytest.mark.parametrize(
+    "key,route",
+    [*enumerate(TIMED_ROUTES), *EDGE_ROUTES.items()],
+    ids=[f"timed{i}" for i in range(len(TIMED_ROUTES))] + list(EDGE_ROUTES),
+)
+def test_copy_rows_route(copy_cases, key, route):
+    x = copy_cases[key]
+    aligned_out = torch.empty(x.shape, dtype=x.dtype).data_ptr()
+    assert aligned_out % 16 == 0
+    assert kernel_tools.copy_rows_route(tuple(x.shape), x.stride(), x.element_size(), x.data_ptr(), aligned_out) == route
+    before = kernel_tools.copy_rows.launches
+    got = kernel_tools.copy_rows(x)
+    assert got.is_contiguous() and bench_tool_kernels.same_bits(got, x.clone())
+    assert kernel_tools.copy_rows.launches == before
+
+
+def test_copy_rows_timed_layouts_are_the_benchs():
+    """The five timed layouts: the segment-sum bench's 16-bit table both
+    ways, its `d_rows` and `csum` tables as `segment_sum_sorted` makes
+    them, and a view with padded rows."""
+    n, f = 384, 12
+    layouts = list(bench_tool_kernels.copy_layouts("cpu", n=n).values())
+    assert [tuple(x.shape) for x in layouts] == [(n, 24), (n, 24), (n, f), (n + 1, f), (n, f - 1)]
+    assert [x.stride() for x in layouts] == [(24, 1), (1, n), (1, n), (1, n + 1), (f, 1)]
+    d_rows, ids = bench_segment_sum.bench_inputs("cpu", n=n, f=f)
+    seen = []
+    got = kernel_tools.segment_sum_sorted(d_rows, ids, 50, anchor=lambda t: seen.append(t) or t)
+    assert torch.equal(got, kernel_tools.segment_sum_sorted(d_rows, ids, 50))
+    assert [(tuple(t.shape), t.stride()) for t in seen] == [((n, f), (1, n)), ((n + 1, f), (1, n + 1))]
+    assert torch.equal(layouts[2], d_rows) and torch.equal(layouts[3][1:], d_rows)
+
+
+@pytest.mark.parametrize(
+    "shape,strides,itemsize,in_ptr,out_ptr,route",
+    [
+        ((8, 4), (4, 1), 4, 256, 512, "flat"),
+        ((8, 4), (4, 1), 4, 260, 512, "general"),  # input off a 16-byte boundary
+        ((8, 4), (1, 8), 4, 260, 512, "column_major"),  # column starts need not be aligned
+        ((8, 4), (1, 4), 4, 256, 512, "general"),  # columns overlap: stride1 < n
+        ((8, 4), (0, 1), 4, 256, 512, "general"),  # stride 0
+        ((8, 4), (8, 1), 8, 256, 512, "general"),  # padded rows
+        ((8, 4), (4, 1), 2, 256, 520, "general"),  # output off a 16-byte boundary
+    ],
+)
+def test_copy_rows_route_by_numbers(shape, strides, itemsize, in_ptr, out_ptr, route):
+    assert kernel_tools.copy_rows_route(shape, strides, itemsize, in_ptr, out_ptr) == route
 
 
 @pytest.mark.parametrize("which", ["smoke_scale", "copy_rows", "segment_sum_atomic", "composite_core_ablation"])
@@ -254,7 +324,7 @@ def test_tool_scripts_import_without_building(tmp_path):
     code = (
         "import importlib\n"
         "from pixelsplat_tpu_torch import kernel_build\n"
-        "for n in ('kernel_smoke', 'bench_segment_sum', 'bench_kernel_ablation', 'eval_scene', 'train_scene', 'profile_scene'):\n"
+        "for n in ('kernel_smoke', 'bench_segment_sum', 'bench_tool_kernels', 'bench_kernel_ablation', 'eval_scene', 'train_scene', 'profile_scene'):\n"
         "    importlib.import_module('pixelsplat_tpu_torch.scripts.' + n)\n"
         "importlib.import_module('pixelsplat_tpu_torch.ops.kernel_tools')\n"
         "importlib.import_module('pixelsplat_tpu_torch.ops.rasterizer.composite_ablation')\n"
