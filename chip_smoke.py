@@ -47,7 +47,23 @@ Phases, each reported on its own lines; any failure exits non-zero:
      alone (the tile with the most processed chunks, the other tiles'
      counts set to 0), peak memory. The kernel lines give each view's
      processed chunks: sum, mean and max per tile.
-5. tools: the four segment sums of `scripts/bench_segment_sum.py` against
+5. eval_protocol: `pixelsplat_tpu_torch.main.main` in this process, as
+   `python -m pixelsplat_tpu_torch.main +experiment=re10k mode=test` runs it
+   on the repo's fixture (`tests/fixtures/re10k`, two scenes, under
+   `tests/fixtures/evaluation_index_fixture.json`: 2 context and 3 target
+   views each), `re10k` at full width, the configured 4 data workers, and a
+   checkpoint written from `init_state` with seeded weights. Checks 2
+   scenes of 393,216 Gaussians encoded probabilistically into SoA, no
+   dropped pairs, finite PSNR and SSIM, LPIPS null unless its weights are on
+   disk, six 256x256 PNGs named by the fixture's target indices,
+   `benchmark.json` (2 encoder, 6 decoder entries), `peak_memory.json`, the
+   forward compositing kernel launched exactly 6 times and no other kernel;
+   then replays the first scene through `make_eval_encode(pack_soa=True)` +
+   `make_eval_decode` on the same batch and uniforms, and holds its PSNR and
+   SSIM on the card (cuDNN TF32 on) against the CPU's. Prints encoder ms
+   per scene and decoder ms per view (the Benchmarker's), data ms per scene
+   and peak memory beside the card line.
+6. tools: the four segment sums of `scripts/bench_segment_sum.py` against
    each other (the sorted one through the row-major copy kernel, twice);
    every variant of the stage-ablation kernel
    (`scripts/bench_kernel_ablation.py`) on `re10k`'s first view, `full`
@@ -69,7 +85,9 @@ the five kernels and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -565,6 +583,190 @@ def model_phases(torch, kernels, model, seed):
         fwd=fwd, fwd_err=max_err, bwd=bwd, bwd_err=bwd_err, bwd_abs_err=bwd_abs_err, bwd_tiles=bwd_tiles,
     )
 
+# The evaluation protocol's phase: the CLI's configuration on the repo's
+# fixture (two scenes of 8 frames at 360x640, 2 context and 3 target views
+# each under the fixture's evaluation index), at full width.
+FIXTURE = ROOT / "tests" / "fixtures"
+EVAL_PROTOCOL_ARGV = [
+    "+experiment=re10k",
+    "mode=test",
+    f"dataset.roots=[{FIXTURE / 're10k'}]",
+    "dataset/view_sampler=evaluation",
+    f"dataset.view_sampler.index_path={FIXTURE / 'evaluation_index_fixture.json'}",
+]
+EVAL_PROTOCOL_SHAPE = (256, 256)
+# The CLI's first scene against make_eval_encode + make_eval_decode on the
+# same batch and uniforms, on the same card with the same settings: the same
+# program on the same inputs, so any difference is nondeterminism.
+EVAL_REPLAY_ATOL = 1e-5
+# Card against CPU for the metrics of those images: PSNR in dB, SSIM. Both
+# are float32 means over 196,608 values; with TF32 in cuDNN (PyTorch's
+# default, on during this check) SSIM would be off by ~1e-3.
+EVAL_PSNR_ATOL_DB = 1e-4
+EVAL_SSIM_ATOL = 1e-6
+
+
+def eval_protocol_phase(torch, kernels) -> dict:
+    """`pixelsplat_tpu_torch.main.main` in this process, as the CLI runs it:
+    `re10k` at full width, the fixture, the configured data workers (forked
+    after CUDA is initialised), a checkpoint that
+    `scripts/write_checkpoint.py` writes from `init_state` with seeded
+    weights. Returns the kernels' launch counts of the run."""
+    import tempfile
+
+    from PIL import Image
+
+    from pixelsplat_tpu_torch import main as cli
+    from pixelsplat_tpu_torch.config import load_config
+    from pixelsplat_tpu_torch.dataset.data_module import DataModule
+    from pixelsplat_tpu_torch.evaluation.lpips import load_lpips
+    from pixelsplat_tpu_torch.evaluation.metrics import compute_psnr, compute_ssim
+    from pixelsplat_tpu_torch.scripts.eval_scene import card_line
+    from pixelsplat_tpu_torch.scripts.write_checkpoint import write_checkpoint
+    from pixelsplat_tpu_torch.training.checkpoint import load_checkpoint
+    from pixelsplat_tpu_torch.training.model_wrapper import ModelWrapper
+    from pixelsplat_tpu_torch.training.trainer import RESULTS_NAME
+
+    index = json.loads((FIXTURE / "evaluation_index_fixture.json").read_text())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        argv = EVAL_PROTOCOL_ARGV + [f"test.output_path={tmp / 'test'}", f"output_dir={tmp / 'outputs'}"]
+        cfg = load_config(argv + ["checkpointing.load=unused"])
+        h, w = cfg.dataset.image_shape
+        checkpoint = write_checkpoint(tmp / "checkpoints", RE10K, SEED)  # the preset equals the experiment
+
+        # Watch the protocol's encodes and renders through the wrapper's
+        # factories: the batch, the generator's state and the images.
+        seen = {"encode": [], "decode": []}
+        make_encode, make_decode = ModelWrapper.make_eval_encode, ModelWrapper.make_eval_decode
+
+        def watched_encode(self, pack_soa=False):
+            encode = make_encode(self, pack_soa=pack_soa)
+
+            def encode_fn(batch, deterministic, step, generator=None, u=None, view_order=None):
+                state = None if generator is None else generator.get_state()
+                g = encode(batch, deterministic, step, generator=generator, u=u, view_order=view_order)
+                seen["encode"].append(dict(batch=batch, generator_state=state, pack_soa=pack_soa,
+                                           deterministic=deterministic, gaussians=g.mean_x.shape[1]))
+                return g
+
+            return encode_fn
+
+        def watched_decode(self):
+            decode = make_decode(self)
+
+            def decode_fn(*args, **kwargs):
+                color, overflow = decode(*args, **kwargs)
+                seen["decode"].append(dict(color=color, settings=args[6] if len(args) > 6 else None))
+                return color, overflow
+
+            return decode_fn
+
+        held_gib = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        ModelWrapper.make_eval_encode, ModelWrapper.make_eval_decode = watched_encode, watched_decode
+        t0 = time.perf_counter()
+        try:
+            summary = cli.main(argv + [f"checkpointing.load={checkpoint}"])
+        finally:
+            ModelWrapper.make_eval_encode, ModelWrapper.make_eval_decode = make_encode, make_decode
+        run_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in kernels.items()}
+
+        phase("eval_protocol", f"main {' '.join(EVAL_PROTOCOL_ARGV)} ... in {run_s:.1f} s: {summary}")
+        if summary["num_scenes"] != len(index) or summary["overflow_pairs"] != 0:
+            fail(f"eval_protocol: {summary['num_scenes']} scenes, {summary['overflow_pairs']} dropped pairs")
+        if not (math.isfinite(summary["psnr"]) and math.isfinite(summary["ssim"])):
+            fail(f"eval_protocol: PSNR {summary['psnr']}, SSIM {summary['ssim']}")
+        pretrained_lpips = load_lpips() is not None
+        if (summary["lpips"] is None) == pretrained_lpips:
+            fail(f"eval_protocol: lpips {summary['lpips']} with pretrained weights on disk: {pretrained_lpips}")
+        counts = [e["gaussians"] for e in seen["encode"]]
+        if counts != [2 * h * w * 3] * len(index) or (h, w) != EVAL_PROTOCOL_SHAPE:
+            fail(f"eval_protocol: Gaussians per scene {counts}, images {h}x{w}")
+        if any(not e["pack_soa"] or e["deterministic"] or e["generator_state"] is None for e in seen["encode"]):
+            fail("eval_protocol: the protocol did not encode probabilistically into SoA from its generator")
+        if launches["composite_fwd"] != 3 * len(index) or any(n for k, n in launches.items() if k != "composite_fwd"):
+            fail(f"eval_protocol: kernel launches {launches}, expected composite_fwd once per target view")
+
+        results = tmp / "test" / RESULTS_NAME
+        want_pngs = sorted(f"{scene}/color/{i:0>6}.png" for scene, e in index.items() for i in e["target"])
+        pngs = sorted(str(p.relative_to(results)) for p in results.rglob("*.png"))
+        if pngs != want_pngs:
+            fail(f"eval_protocol: PNGs {pngs}, expected {want_pngs}")
+        sizes = {Image.open(results / name).size for name in pngs}
+        if sizes != {(w, h)}:
+            fail(f"eval_protocol: PNG sizes {sizes}")
+        bench = json.loads((results / "benchmark.json").read_text())
+        if {k: len(v) for k, v in bench.items()} != {"encoder": len(index), "decoder": 3 * len(index)}:
+            fail(f"eval_protocol: benchmark.json holds {({k: len(v) for k, v in bench.items()})}")
+        memory = json.loads((results / "peak_memory.json").read_text())
+        if "peak_bytes_in_use" not in memory:
+            fail(f"eval_protocol: peak_memory.json has no peak_bytes_in_use ({len(memory)} keys)")
+        phase("eval_protocol", f"{len(pngs)} PNGs at {w}x{h}: {', '.join(pngs)}; composite_fwd launched "
+              f"{launches['composite_fwd']} times; {counts[0]} Gaussians per scene")
+
+        # The first scene again through the wrapper's evaluation entry points.
+        reference = ModelWrapper(cfg.model.encoder, cfg.model.decoder)
+        reference.encoder.load_state_dict(load_checkpoint(checkpoint)["params"], strict=True)
+        first = seen["encode"][0]
+        generator = torch.Generator(device=reference.device)
+        generator.set_state(first["generator_state"])
+        gaussians = reference.make_eval_encode(pack_soa=True)(first["batch"], False, 0, generator=generator)
+        target = first["batch"]["target"]
+        settings = reference.choose_eval_settings(
+            gaussians, target["extrinsics"], target["intrinsics"], target["near"], (h, w)
+        )
+        color, overflow = reference.make_eval_decode()(
+            gaussians, target["extrinsics"], target["intrinsics"], target["near"], target["far"], (h, w), settings
+        )
+        torch.cuda.synchronize()
+        replay_err = float((color - seen["decode"][0]["color"]).abs().max())
+        phase("eval_protocol", f"first scene replayed through make_eval_encode(pack_soa=True) + "
+              f"make_eval_decode: max |diff| {replay_err:.3g} (atol {EVAL_REPLAY_ATOL}), settings "
+              f"{'equal' if settings == seen['decode'][0]['settings'] else 'DIFFER'}, overflow {int(overflow)}")
+        if not replay_err <= EVAL_REPLAY_ATOL or settings != seen["decode"][0]["settings"] or int(overflow):
+            fail(f"eval_protocol: the replayed first scene differs by {replay_err:.3g}")
+
+        # Its metrics on the card, with cuDNN's TF32 on as PyTorch leaves it,
+        # against the same functions on the CPU.
+        gt, img = target["image"][0], color[0]
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
+                         allow_tf32=True):
+            card_metrics = [float(compute_psnr(gt, img).mean()), float(compute_ssim(gt, img).mean())]
+        cpu_metrics = [float(compute_psnr(gt.cpu(), img.cpu()).mean()), float(compute_ssim(gt.cpu(), img.cpu()).mean())]
+        psnr_err, ssim_err = (abs(a - b) for a, b in zip(card_metrics, cpu_metrics))
+        phase("eval_protocol", f"first scene PSNR {card_metrics[0]:.6f} dB (card) vs {cpu_metrics[0]:.6f} (CPU), "
+              f"SSIM {card_metrics[1]:.8f} vs {cpu_metrics[1]:.8f}")
+        if not (psnr_err <= EVAL_PSNR_ATOL_DB and ssim_err <= EVAL_SSIM_ATOL):
+            fail(f"eval_protocol: card vs CPU metrics off by {psnr_err:.3g} dB PSNR, {ssim_err:.3g} SSIM")
+        del reference, gaussians, color, seen
+
+        # The data path alone: the test loader with the configured workers
+        # (their start included), then inline.
+        data_ms = {}
+        for workers in (cfg.data_loader.test.num_workers, 0):
+            loader_cfg = dataclasses.replace(
+                cfg.data_loader, test=dataclasses.replace(cfg.data_loader.test, num_workers=workers)
+            )
+            t0 = time.perf_counter()
+            scenes = sum(1 for _ in DataModule(cfg.dataset, loader_cfg).test_dataloader())
+            data_ms[workers] = (time.perf_counter() - t0) * 1e3 / scenes
+
+    encoder_ms = [1e3 * t for t in bench["encoder"]]
+    decoder_ms = [1e3 * t for t in bench["decoder"]]
+    peak_gib = memory["peak_bytes_in_use"] / 2**30
+    phase("timing", f"eval_protocol | {card_line()} | encoder ms per scene {[round(t, 3) for t in encoder_ms]} "
+          f"(mean {sum(encoder_ms) / len(encoder_ms):.3f}) | decoder ms per view "
+          f"{[round(t, 3) for t in decoder_ms[::3]]} (mean {sum(decoder_ms) / len(decoder_ms):.3f}; the settings "
+          f"probe included) | data ms per scene {data_ms[cfg.data_loader.test.num_workers]:.1f} with "
+          f"{cfg.data_loader.test.num_workers} workers, {data_ms[0]:.1f} inline | peak memory {peak_gib:.2f} GiB "
+          f"({held_gib:.2f} GiB held by earlier phases) | main {run_s:.1f} s")
+    return {"launches": launches}
+
 
 def tools_phase(torch, kernels, first_view):
     """The kernel tools' path (the segment-sum bench's checks and the stage
@@ -693,10 +895,14 @@ def main() -> None:
     # 4. both models, each through scene, kernels, references, training, timing
     results = {model: model_phases(torch, kernels, model, SEED) for model in (ABLATION, RE10K)}
 
-    # 5. tools, on the production model's first view
+    # 5. the evaluation protocol through the CLI's entry point
+    protocol = eval_protocol_phase(torch, kernels)
+
+    # 6. tools, on the production model's first view
     tools = tools_phase(torch, kernels, results[RE10K]["first_view"])
 
     by_path = {"tools": {name: smoke_launches[name] + tools["launches"][name] for name in kernels}}
+    by_path["eval_protocol"] = protocol["launches"]
     for model, r in results.items():
         for path, counts in r["launches"].items():
             by_path[f"{model} {path}"] = counts

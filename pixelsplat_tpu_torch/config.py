@@ -1,16 +1,26 @@
-"""Configuration of the port: the config dataclasses and the slice's model.
+"""Configuration of the port: the YAML composer, the root config and the
+presets of the shipped experiments.
 
-The dataclasses live beside the modules they configure, as in the JAX
-package (`pixelsplat_tpu/config.py` composes them from the YAML files
-under `config/`). This module gathers them and builds the configurations of
-two experiments. `re10k` (`config/experiment/re10k.yaml`) is the production
-model: the DINO ViT-B/8 + dino_resnet50 backbone, d_feature 128, the
-epipolar transformer (downscale 4, 32 samples per line, 2 cross-attention
-layers whose feed-forward is a 2-layer image self-attention, 4 heads x 128,
-10 octaves), 32 depth buckets, 3 Gaussians per pixel and degree-4 SH,
-trained with MSE + LPIPS (from step 150,000) by Adam at 1.5e-4 with a
-2,000-step warm-up and a 0.5 global-norm clip (`config/main.yaml`), the
-encoder rematerialized and 7 batches accumulated per update.
+The config dataclasses live beside the modules they configure, as in the
+JAX package. `compose_config` / `load_config` are the port's own copy of
+`pixelsplat_tpu/config.py`'s Hydra subset: `config/main.yaml` (at the root
+of the checkout, shared with the JAX package) with its `defaults` list of
+composable groups, `optional` defaults with `${group}`-interpolated names,
+`# @package _global_` experiment files applied at the root, and dotted CLI
+overrides (`a.b.c=value`, `+experiment=re10k`, group selections such as
+`dataset/view_sampler=evaluation`); the composed dict becomes a `RootCfg`
+of the port's dataclasses (unions of configs told apart by their `name`).
+
+The presets build the model configuration of two experiments without the
+YAML files, and equal what `load_config` composes for them. `re10k`
+(`config/experiment/re10k.yaml`) is the production model: the DINO
+ViT-B/8 + dino_resnet50 backbone, d_feature 128, the epipolar transformer
+(downscale 4, 32 samples per line, 2 cross-attention layers whose
+feed-forward is a 2-layer image self-attention, 4 heads x 128, 10
+octaves), 32 depth buckets, 3 Gaussians per pixel and degree-4 SH, trained
+with MSE + LPIPS (from step 150,000) by Adam at 1.5e-4 with a 2,000-step
+warm-up and a 0.5 global-norm clip (`config/main.yaml`), the encoder
+rematerialized and 7 batches accumulated per update.
 `re10k_ablation_no_epipolar_transformer` is the published ablation without
 the transformer, remat or accumulation.
 """
@@ -18,8 +28,23 @@ the transformer, remat or accumulation.
 from __future__ import annotations
 
 import dataclasses
+import types
+import typing
 from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Union
 
+import yaml
+
+from .dataset.data_module import DataLoaderCfg, DataLoaderStageCfg
+from .dataset.dataset_re10k import DatasetRE10kCfg
+from .dataset.view_sampler import (
+    ViewSamplerAllCfg,
+    ViewSamplerArbitraryCfg,
+    ViewSamplerBoundedCfg,
+    ViewSamplerEvaluationCfg,
+)
+from .loss import LossDepthCfg, LossLpipsCfg, LossMseCfg
 from .model.decoder.decoder_splatting import DecoderSplattingCfg
 from .model.encoder.backbone.dino import BackboneDinoCfg
 from .model.encoder.backbone.resnet import BackboneResnetCfg
@@ -27,10 +52,331 @@ from .model.encoder.common.gaussian_adapter import GaussianAdapterCfg
 from .model.encoder.encoder_epipolar import EncoderEpipolarCfg, OpacityMappingCfg
 from .model.encoder.epipolar.epipolar_transformer import EpipolarTransformerCfg
 from .model.encoder.epipolar.image_self_attention import ImageSelfAttentionCfg
-from .loss import LossDepthCfg, LossLpipsCfg, LossMseCfg
 from .ops.rasterizer.render import RenderSettings
-from .training.model_wrapper import TrainCfg
+from .training.model_wrapper import CheckpointingCfg, TestCfg, TrainCfg
 from .training.optimizer import OptimizerCfg
+from .training.trainer import TrainerCfg
+
+CONFIG_ROOT = Path(__file__).resolve().parent.parent / "config"
+
+# ---------------------------------------------------------------------------
+# Composition
+
+
+def _deep_merge(base: dict, override: dict) -> dict:
+    out = dict(base)
+    for k, v in override.items():
+        if k in out and isinstance(out[k], dict) and isinstance(v, dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def _load_yaml(path: Path) -> tuple[dict, bool]:
+    """Returns (data, is_global_package)."""
+    text = path.read_text()
+    is_global = "@package _global_" in text.split("\n", 2)[0] + "\n".join(
+        text.split("\n")[:3]
+    )
+    data = yaml.safe_load(text) or {}
+    return data, is_global
+
+
+def _compose_group(
+    group: str,
+    name: str,
+    choices: dict,
+    selections: dict,
+    config_root: Path,
+) -> dict:
+    """Load config/<group>/<name>.yaml, recursively applying its defaults.
+
+    `selections` (group path -> name) overrides nested default choices, the
+    way Hydra CLI group overrides do.
+    """
+    path = config_root / group / f"{name}.yaml"
+    data, _ = _load_yaml(path)
+    defaults = data.pop("defaults", [])
+    result: dict = {}
+    for entry in defaults:
+        if entry == "_self_":
+            continue
+        assert isinstance(entry, dict), f"unsupported default {entry!r}"
+        ((sub_group, sub_name),) = entry.items()
+        full = f"{group}/{sub_group}"
+        sub_name = selections.get(full, sub_name)
+        choices[full] = sub_name
+        result[sub_group] = _deep_merge(
+            result.get(sub_group, {}),
+            _compose_group(full, sub_name, choices, selections, config_root),
+        )
+    choices[group] = name
+    return _deep_merge(result, data)
+
+
+def compose_config(
+    overrides: list[str],
+    config_root: Path = CONFIG_ROOT,
+    main_name: str = "main",
+) -> dict:
+    """Compose config/main.yaml with CLI overrides (Hydra-style).
+
+    Merge order matches Hydra with an implicit trailing _self_:
+    group defaults (with experiment `override /group` and CLI group
+    selections applied in place) -> interpolated optional defaults -> main
+    body -> experiment bodies -> CLI dotted value overrides.
+    """
+    main, _ = _load_yaml(config_root / f"{main_name}.yaml")
+    defaults = main.pop("defaults", [])
+
+    # Parse CLI overrides.
+    selections: dict[str, Any] = {}
+    value_overrides: list[tuple[str, Any]] = []
+    experiments: list[str] = []
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"Malformed override: {ov!r}")
+        key, _, value = ov.partition("=")
+        if key.startswith("+experiment"):
+            experiments.append(value)
+        elif "/" in key and not key.startswith("+"):
+            selections[key] = yaml.safe_load(value)
+        else:
+            value_overrides.append((key.lstrip("+"), yaml.safe_load(value)))
+
+    # Experiment defaults modify the main defaults list in place.
+    experiment_bodies: list[dict] = []
+    exp_selections: dict[str, Any] = {}
+    for exp in experiments:
+        data, _ = _load_yaml(config_root / "experiment" / f"{exp}.yaml")
+        for entry in data.pop("defaults", []):
+            if entry == "_self_":
+                continue
+            ((group, name),) = entry.items()
+            if group.startswith("override"):
+                group = group[len("override") :].strip()
+            group = group.lstrip("/")
+            exp_selections[group] = name
+        experiment_bodies.append(data)
+    # CLI selections beat experiment selections.
+    selections = {**exp_selections, **selections}
+
+    # `override group: name` entries in the main defaults list modify the
+    # selection of an earlier entry (used by compute_metrics.yaml etc.).
+    pruned_defaults = []
+    own_overrides: dict[str, Any] = {}
+    for entry in defaults:
+        if isinstance(entry, dict):
+            ((group, name),) = entry.items()
+            if isinstance(group, str) and group.startswith("override"):
+                own_overrides[group[len("override") :].strip().lstrip("/")] = name
+                continue
+        pruned_defaults.append(entry)
+    defaults = pruned_defaults
+
+    # Hydra also accepts group selections for TOP-LEVEL groups without a
+    # slash in the key (e.g. `loss=[mse]`, `dataset=acid`): reclassify
+    # undotted value overrides whose key names a defaults-list group.
+    top_groups = set()
+    for entry in defaults:
+        if isinstance(entry, dict):
+            ((group, _),) = entry.items()
+            if isinstance(group, str):
+                if group.startswith("optional "):
+                    group = group[len("optional ") :].strip()
+                top_groups.add(group)
+    remaining: list[tuple[str, Any]] = []
+    for key, value in value_overrides:
+        if key in top_groups and "." not in key:
+            selections[key] = value
+        else:
+            remaining.append((key, value))
+    value_overrides = remaining
+
+    selections = {**own_overrides, **selections}
+
+    choices: dict[str, Any] = {}
+    cfg: dict = {}
+    deferred: list[tuple[str, str]] = []
+    for entry in defaults:
+        if entry == "_self_":
+            continue
+        assert isinstance(entry, dict), f"unsupported default {entry!r}"
+        ((group, name),) = entry.items()
+        if isinstance(group, str) and group.startswith("optional "):
+            deferred.append((group[len("optional ") :].strip(), name))
+            continue
+        name = selections.get(group, name)
+        if isinstance(name, list):
+            target: dict = {}
+            for n in name:
+                target = _deep_merge(
+                    target,
+                    {n: _compose_group(group, n, choices, selections, config_root)},
+                )
+            choices[group] = name
+        else:
+            target = _compose_group(group, name, choices, selections, config_root)
+        # Nest under the group path (e.g. model/encoder -> cfg[model][encoder]).
+        node = cfg
+        parts = group.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = _deep_merge(node.get(parts[-1], {}), target)
+
+    # Interpolated optional defaults (view-sampler-specific overrides);
+    # these files are @package _global_.
+    for group, name in deferred:
+        resolved = name
+        while "${" in resolved:
+            start = resolved.index("${")
+            end = resolved.index("}", start)
+            var = resolved[start + 2 : end]
+            resolved = (
+                resolved[:start] + str(choices.get(var, "")) + resolved[end + 1 :]
+            )
+        path = config_root / group / f"{resolved}.yaml"
+        if not path.exists():
+            continue
+        data, _ = _load_yaml(path)
+        data.pop("defaults", None)
+        cfg = _deep_merge(cfg, data)
+
+    cfg = _deep_merge(cfg, main)
+    for body in experiment_bodies:
+        cfg = _deep_merge(cfg, body)
+
+    # Finally, dotted value overrides.
+    for key, value in value_overrides:
+        node = cfg
+        parts = key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+
+    cfg["__choices__"] = choices
+    return cfg
+
+
+# ---------------------------------------------------------------------------
+# dict -> dataclass conversion
+
+
+def _convert(value: Any, ty: Any) -> Any:
+    origin = typing.get_origin(ty)
+    if ty is Any:
+        return value
+    if origin in (Union, types.UnionType):
+        args = [a for a in typing.get_args(ty) if a is not type(None)]
+        if value is None:
+            return None
+        # Discriminate dataclass unions by their `name` literal default.
+        if isinstance(value, dict) and "name" in value:
+            for arg in args:
+                if dataclasses.is_dataclass(arg):
+                    f = {f.name: f for f in dataclasses.fields(arg)}.get("name")
+                    if f is not None and f.default == value["name"]:
+                        return _convert(value, arg)
+        for arg in args:
+            try:
+                return _convert(value, arg)
+            except (TypeError, ValueError, KeyError):
+                continue
+        raise TypeError(f"Cannot convert {value!r} to {ty}")
+    if dataclasses.is_dataclass(ty):
+        if not isinstance(value, dict):
+            raise TypeError(f"expected dict for {ty}, got {value!r}")
+        hints = typing.get_type_hints(ty)
+        return ty(**{f.name: _convert(value[f.name], hints[f.name]) for f in dataclasses.fields(ty) if f.name in value})
+    if origin in (list, tuple) or ty in (list, tuple):
+        args = typing.get_args(ty)
+        if origin is tuple or ty is tuple:
+            if args and args[-1] is Ellipsis:
+                return tuple(_convert(v, args[0]) for v in value)
+            if args:
+                return tuple(_convert(v, a) for v, a in zip(value, args))
+            return tuple(value)
+        elt = args[0] if args else Any
+        return [_convert(v, elt) for v in value]
+    if ty is Path:
+        return Path(value)
+    if ty in (int, float, str, bool):
+        return ty(value)
+    if origin is typing.Literal or typing.get_origin(ty) is typing.Literal:
+        return value
+    return value
+
+
+def from_dict(ty, value: dict):
+    return _convert(value, ty)
+
+
+# ---------------------------------------------------------------------------
+# Root config
+
+
+@dataclass(frozen=True)
+class WandbCfg:
+    project: str = "pixelsplat_tpu"
+    entity: str = ""
+    name: str = "placeholder"
+    mode: str = "disabled"
+    tags: tuple[str, ...] = ()
+
+
+@dataclass(frozen=True)
+class ModelCfg:
+    encoder: EncoderEpipolarCfg = field(default_factory=EncoderEpipolarCfg)
+    decoder: DecoderSplattingCfg = field(default_factory=DecoderSplattingCfg)
+
+
+LossCfgUnion = Union[LossMseCfg, LossLpipsCfg, LossDepthCfg]
+
+
+@dataclass(frozen=True)
+class RootCfg:
+    wandb: WandbCfg = field(default_factory=WandbCfg)
+    mode: str = "train"
+    dataset: DatasetRE10kCfg = field(default_factory=DatasetRE10kCfg)
+    data_loader: DataLoaderCfg = field(default_factory=DataLoaderCfg)
+    model: ModelCfg = field(default_factory=ModelCfg)
+    optimizer: OptimizerCfg = field(default_factory=OptimizerCfg)
+    checkpointing: CheckpointingCfg = field(default_factory=CheckpointingCfg)
+    trainer: TrainerCfg = field(default_factory=TrainerCfg)
+    train: TrainCfg = field(default_factory=TrainCfg)
+    test: TestCfg = field(default_factory=TestCfg)
+    loss: tuple[LossCfgUnion, ...] = ()
+    seed: int = 111123
+    output_dir: Path = Path("outputs")
+
+
+def _losses_from_dict(loss_cfg: dict) -> tuple:
+    """{name: {weight: ..}} -> tuple of typed loss cfgs (the config keys
+    losses by their group name)."""
+    classes = {"mse": LossMseCfg, "lpips": LossLpipsCfg, "depth": LossDepthCfg}
+    out = []
+    for name, body in (loss_cfg or {}).items():
+        body = dict(body or {})
+        body.pop("name", None)
+        out.append(_convert({"name": name, **body}, classes[name]))
+    return tuple(out)
+
+
+def load_typed_root_config(cfg: dict) -> RootCfg:
+    cfg = dict(cfg)
+    cfg.pop("__choices__", None)
+    loss = cfg.pop("loss", {})
+    root = _convert(cfg, RootCfg)
+    return dataclasses.replace(root, loss=_losses_from_dict(loss))
+
+
+def load_config(overrides: list[str]) -> RootCfg:
+    return load_typed_root_config(compose_config(overrides))
+
+
+# ---------------------------------------------------------------------------
+# Presets
 
 # Target views per training example
 # (config/dataset/view_sampler_dataset_specific_config/bounded_re10k.yaml).
@@ -119,6 +465,24 @@ EXPERIMENTS = {
 
 
 __all__ = [
+    "CONFIG_ROOT",
+    "CheckpointingCfg",
+    "DataLoaderCfg",
+    "DataLoaderStageCfg",
+    "DatasetRE10kCfg",
+    "ModelCfg",
+    "RootCfg",
+    "TestCfg",
+    "TrainerCfg",
+    "ViewSamplerAllCfg",
+    "ViewSamplerArbitraryCfg",
+    "ViewSamplerBoundedCfg",
+    "ViewSamplerEvaluationCfg",
+    "WandbCfg",
+    "compose_config",
+    "from_dict",
+    "load_config",
+    "load_typed_root_config",
     "BackboneDinoCfg",
     "BackboneResnetCfg",
     "DecoderSplattingCfg",

@@ -24,7 +24,17 @@ def save_checkpoint(directory: Path, step: int, state: dict) -> Path:
 
 
 def load_checkpoint(path: Path, map_location: Any = "cpu") -> dict:
-    return torch.load(Path(path).resolve(), map_location=map_location, weights_only=True)
+    path = Path(path).resolve()
+    if path.is_dir():
+        # The JAX package's orbax checkpoints are directories, and reading
+        # one needs JAX.
+        raise ValueError(
+            f"{path} is a directory, not a checkpoint of this package (one torch.save file): "
+            "an orbax checkpoint of the JAX package cannot be read without JAX. Convert its "
+            "parameters in a process that has both packages with "
+            "pixelsplat_tpu_torch/interop/from_jax.py::load_from_jax, then save_checkpoint"
+        )
+    return torch.load(path, map_location=map_location, weights_only=True)
 
 
 def latest_checkpoint(directory: Path) -> Optional[Path]:

@@ -5,7 +5,8 @@ Port of `pixelsplat_tpu/training/model_wrapper.py` for one device. Training:
 (encode the context views, render the target views, the configured losses,
 backward, global-norm clip, Adam with warm-up). Evaluation:
 `make_eval_encode`, `choose_eval_settings`, `make_eval_decode` (encode,
-choose render settings for the scene from its tile occupancy, render).
+choose render settings for the scene from its tile occupancy, render), and
+`make_eval_render` (encode and render in one call).
 
 Where the JAX package threads an explicit parameter tree through pure
 functions, the parameters here live in `self.encoder` and a train step
@@ -15,6 +16,7 @@ updates them in place; `TrainState.params` names the same tensors.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Optional, Sequence, Union
 
 import torch
@@ -38,6 +40,23 @@ class TrainCfg:
     # Recompute the encoder in the backward pass (torch.utils.checkpoint):
     # trades encoder FLOPs for activation memory.
     remat_encoder: bool = False
+
+
+@dataclass(frozen=True)
+class TestCfg:
+    output_path: Path = Path("outputs/test")
+    # Probe each scene's tile occupancy once and render at the smallest
+    # sufficient capacity and pair budget (ops/rasterizer/adaptive.py)
+    # instead of the static worst case. Render-exact: the probe is an upper
+    # bound, and overflow stays surfaced.
+    adaptive_capacity: bool = True
+
+
+@dataclass(frozen=True)
+class CheckpointingCfg:
+    load: Optional[str] = None
+    every_n_train_steps: int = 5000
+    save_top_k: int = -1
 
 
 @dataclass
@@ -95,6 +114,7 @@ class ModelWrapper:
         train_cfg: TrainCfg = TrainCfg(),
         loss_cfgs: Sequence = (),
         gradient_clip_val: float = 0.5,
+        test_cfg: TestCfg = TestCfg(),
     ):
         self.device = resolve_device(device)
         self.encoder_cfg = encoder_cfg
@@ -103,6 +123,7 @@ class ModelWrapper:
         self.decoder = DecoderSplatting(decoder_cfg)
         self.optimizer_cfg = optimizer_cfg
         self.train_cfg = train_cfg
+        self.test_cfg = test_cfg
         self.gradient_clip_val = gradient_clip_val
         self.losses = get_losses(list(loss_cfgs), device=self.device)
 
@@ -228,6 +249,26 @@ class ModelWrapper:
         return step_fn
 
     # ------------------------------------------------------------------
+    def make_eval_render(self) -> Callable:
+        """`render_fn(batch, step, generator=None, u=None)` -> (color (b, v,
+        3, h, w), overflow): the test protocol's encode and render in one
+        call. The encoder is the probabilistic one (3 Gaussians per pixel in
+        the production config), as the published metrics use, and the
+        target views render at the decoder's static settings."""
+        encode_fn = self.make_eval_encode()
+        decode_fn = self.make_eval_decode()
+
+        def render_fn(batch: dict, step: int, generator: Optional[torch.Generator] = None,
+                      u: Optional[torch.Tensor] = None):
+            gaussians = encode_fn(batch, False, step, generator=generator, u=u)
+            target = self.data_shim(batch_to(batch, self.device))["target"]
+            h, w = target["image"].shape[-2:]
+            return decode_fn(
+                gaussians, target["extrinsics"], target["intrinsics"], target["near"], target["far"], (h, w)
+            )
+
+        return render_fn
+
     def make_eval_encode(self, pack_soa: bool = False) -> Callable:
         """`encode_fn(batch, deterministic, step, generator=None, u=None)`.
 

@@ -30,6 +30,16 @@ CHUNK = 128
 TILES_X = 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: next to the other test processes, more threads
+    only contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def t(x):
     return torch.as_tensor(np.array(x))
 

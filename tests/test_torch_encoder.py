@@ -38,6 +38,16 @@ from pixelsplat_tpu_torch.utils import distributions as pt_dist
 TINY = dict(patch=8, dim=64, depth=2, heads=2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: next to the other test processes, more threads
+    only contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def tiny_vit(monkeypatch):
     monkeypatch.setitem(jx_dino.VIT_SPECS, "tiny", TINY)

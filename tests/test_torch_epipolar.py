@@ -42,6 +42,16 @@ from test_torch_encoder import close, randomize, t
 F32_EPS = float(np.finfo(np.float32).eps)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: next to the other test processes, more threads
+    only contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def j(x):
     return jnp.asarray(x)
 

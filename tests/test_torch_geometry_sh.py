@@ -14,6 +14,16 @@ from pixelsplat_tpu_torch.model.encoder.common import gaussians as pt_gauss
 from pixelsplat_tpu_torch.ops import sh as pt_sh
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: next to the other test processes, more threads
+    only contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def t(x):
     return torch.as_tensor(np.array(x))
 

@@ -50,6 +50,16 @@ SMALL_TRANSFORMER = dict(num_octaves=4, num_layers=1, num_heads=2, num_samples=4
 SMALL_SELF_ATTENTION = dict(patch_size=4, num_octaves=4, num_layers=1, num_heads=2, d_token=32, d_dot=16, d_mlp=32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: next to the other test processes, more threads
+    only contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def small(cfg, num_context_views=2):
     """An encoder config (of either package) cut to the test's size."""
     et = cfg.epipolar_transformer

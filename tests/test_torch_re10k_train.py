@@ -29,6 +29,16 @@ import test_torch_train_step as train_helpers
 from test_torch_re10k import H, W, shrink_backbones, small_backbones, small_cfgs  # noqa: F401  (an autouse fixture)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: next to the other test processes, more threads
+    only contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def train_setup():
     with pytest.MonkeyPatch.context() as mp:

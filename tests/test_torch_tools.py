@@ -42,6 +42,16 @@ ROOT = Path(__file__).resolve().parent.parent
 # y = 2 x and the row-major copy: plain versions against numpy
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: next to the other test processes, more threads
+    only contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("shape", [(256, 256), (7,), (3, 5, 2)])
 def test_smoke_scale_plain_and_cpu_dispatch(shape):
     x = np.random.default_rng(0).normal(size=shape).astype(np.float32)
