@@ -77,6 +77,39 @@ Phases, each reported on its own lines; any failure exits non-zero:
    per call from CUDA events in alternating rounds with the library call,
    device-only ms from `torch.profiler`, host us per call) beside their
    bounds.
+7. train_protocol: `pixelsplat_tpu_torch.main.main` in this process in
+   `mode=train`, as `python -m pixelsplat_tpu_torch.main +experiment=re10k
+   mode=train` runs it (cuDNN's TF32 on, as the CLI leaves it; TF32 off
+   again after), at full width (256x256, gpp 3, 393,216 Gaussians per
+   example, 4 target views) with the configured 16 train and 1 validation
+   data workers, on the fixture made into a train split
+   (`scripts/train_fixture.py`: the two scenes under new keys in `train/`,
+   the fixture's `test/` for validation; the context gap cut from 25 -> 45
+   frames to 2 -> 6, the only cut). Run A trains `re10k`'s recipe (batch 7,
+   `accumulate_grad_batches` 7, `remat_encoder`) 4 steps from fresh
+   weights, a validation check every step and a checkpoint every 2, LPIPS
+   with random VGG weights allowed. Checks the returned step and the step
+   tracker at 4, checkpoints `step_2` and `step_4` saved once each,
+   validation passes at steps 1 and 3 (the one-batch validation iterator is
+   restarted at every other check, as the JAX package's `fit` does) with
+   finite PSNR and SSIM, their comparison grids on disk at the layout's
+   size, finite losses and no dropped pairs at every logged step, weights
+   moved after `step_2`, and K1 launched exactly once per target view per example plus
+   once per validation view per variant, K2 once per target view per
+   example, no other kernel. Run B is the same command to step 6: it must
+   resume from `step_4` with the weights and Adam's moments bit for bit
+   and end at 6. Run C trains `re10k_depth_loss` 2 steps at its recipe
+   (batch 7 in one micro-batch, no remat; running out of memory fails the
+   run): a finite `loss/depth` at every logged step, K1 and K2 each
+   launched twice per target view per example (colour and depth). Then K1
+   and K2 against their plain versions on run C's depth renders (one colour
+   channel; the first batch of a new train stream, the final weights, the
+   depth loss's cotangents), K1 to the scene's tolerance times the largest
+   depth, K2 every row as in phase 4. Prints, from the `benchmark.json` and
+   `peak_memory.json` that `fit` writes, per step the data wait (host),
+   each micro-batch's forward and backward and the optimizer (CUDA events)
+   and the step (host), then validation ms, checkpoint save ms and MiB and
+   peak memory, beside the card line.
 
 Every kernel's launch count is set to 0 just before each path is driven
 and read just after it. The run ends with the card line, a JSON record of
@@ -101,17 +134,23 @@ SEED = 0
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 # FP32 operations per (list slot, pixel) evaluation in the compositing
-# loop: offset 2, quadratic form 9, opacity scale 1, clamp 1, tests and
-# select 3, weight 1, six colour FMAs 12, transmittance update 2 (the expf
-# goes to the special-function units and is not counted here).
-COMPOSITE_OPS_PER_EVAL = 31
-# FP32 operations per (list slot, pixel) evaluation in the backward sweep:
-# the forward's alpha recomputed 16 (offset 2, quadratic form 9, opacity
-# scale 1, tests, select and clamp 4), colour . g 12, log T, w, S, d_alpha,
-# d_power and d_opacity 10, the five geometry partials 18, six colour
-# partials 6, and one add per partial into its per-slot sum 12 (expf,
-# log1pf and the second expf go to the special-function units).
-COMPOSITE_BWD_OPS_PER_EVAL = 74
+# loop, for c colour channels: offset 2, quadratic form 9, opacity scale 1,
+# clamp 1, tests and select 3, weight 1, transmittance update 2, and one
+# FMA (2) per channel (the expf goes to the special-function units and is
+# not counted here): 25 for a colour render (c = 3), 21 for a depth render
+# (c = 1). The kernel runs all six colour columns of its 12-float rows;
+# the bound counts only the channels the render uses.
+COMPOSITE_OPS_PER_EVAL = 19
+COMPOSITE_OPS_PER_CHANNEL = 2
+# FP32 operations per (list slot, pixel) evaluation in the backward sweep,
+# for c channels: the forward's alpha recomputed 16 (offset 2, quadratic
+# form 9, opacity scale 1, tests, select and clamp 4), log T, w, S,
+# d_alpha, d_power and d_opacity 10, the five geometry partials 18, one
+# add each of those six partials into its per-slot sum 6, and per channel
+# colour . g 2, its partial 1 and its add 1 (expf, log1pf and the second
+# expf go to the special-function units): 62 for c = 3, 54 for c = 1.
+COMPOSITE_BWD_OPS_PER_EVAL = 50
+COMPOSITE_BWD_OPS_PER_CHANNEL = 4
 # Kernel vs plain version: f32 sums of up to a few thousand terms per pixel
 # in another order, and the kernel's expf against torch.exp.
 KERNEL_ATOL = 1e-4
@@ -173,19 +212,28 @@ def phase(name: str, message: str) -> None:
     print(f"[{name}] {message}", flush=True)
 
 
+def colour_channels(table) -> int:
+    """The colour channels a render uses: its table's colour columns (6 on)
+    up to the last one that is not all zeros."""
+    used = (table[:, 6:] != 0).any(dim=0).nonzero()
+    return int(used.max()) + 1 if used.numel() else 0
+
+
 def composite_bound_ms(tiles, table, n_proc, chunk: int) -> tuple[float, str]:
     """Least time for one compositing launch on these inputs: the larger of
     its bytes (inputs read once, outputs written once) over HBM bandwidth
-    and its FP32 work on the list slots it composites over the FP32 rate."""
+    and its FP32 work on the list slots it composites, for the channels the
+    render uses, over the FP32 rate."""
     import torch
 
     num_tiles = tiles.counts.numel()
     pixels = 256
     evals = int(torch.minimum(tiles.counts.long(), n_proc.long() * chunk).sum()) * pixels
+    ops = COMPOSITE_OPS_PER_EVAL + COMPOSITE_OPS_PER_CHANNEL * colour_channels(table)
     bytes_in = table.numel() * 4 + tiles.flat.numel() * 4 + 2 * num_tiles * 4
     bytes_out = num_tiles * (8 * pixels + pixels + 1) * 4
     t_bytes = (bytes_in + bytes_out) / PEAK_BYTES_PER_S
-    t_ops = evals * COMPOSITE_OPS_PER_EVAL / PEAK_FP32_PER_S
+    t_ops = evals * ops / PEAK_FP32_PER_S
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -193,20 +241,22 @@ def composite_bwd_bound_ms(inp) -> tuple[float, str]:
     """Least time for one backward compositing launch on these inputs: the
     larger of its bytes (table, ids, per-tile integers, T and both
     cotangents read once, d_table written once) over HBM bandwidth and its
-    FP32 work on the list slots the forward composited over the FP32 rate."""
+    FP32 work on the list slots the forward composited, for the channels
+    the render uses, over the FP32 rate."""
     import torch
 
     tiles, table, chunk = inp["tiles"], inp["table"], inp["chunk"]
     num_tiles = tiles.counts.numel()
     pixels = 256
     evals = int(torch.minimum(tiles.counts.long(), inp["n_proc"].long() * chunk).sum()) * pixels
+    ops = COMPOSITE_BWD_OPS_PER_EVAL + COMPOSITE_BWD_OPS_PER_CHANNEL * colour_channels(table)
     bytes_in = (
         table.numel() * 4 + tiles.flat.numel() * 4 + 3 * num_tiles * 4
         + num_tiles * (pixels + 8 * pixels + pixels) * 4
     )
     bytes_out = table.numel() * 4
     t_bytes = (bytes_in + bytes_out) / PEAK_BYTES_PER_S
-    t_ops = evals * COMPOSITE_BWD_OPS_PER_EVAL / PEAK_FP32_PER_S
+    t_ops = evals * ops / PEAK_FP32_PER_S
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -768,6 +818,361 @@ def eval_protocol_phase(torch, kernels) -> dict:
     return {"launches": launches}
 
 
+# The training phase: the CLI's `mode=train` on the fixture made into a
+# train split (`scripts/train_fixture.py`: the two scenes under new keys in
+# `train/`, the fixture's `test/` for validation; the context gap cut from
+# 25 -> 45 frames to 2 -> 6), at full width (256x256, gpp 3, 4 target views).
+# A check every step: `fit`'s validation iterator holds one batch and is
+# restarted when a check finds it spent, as the JAX package's `fit` does, so
+# the passes fall on every other check (steps 1 and 3 of 4).
+TRAIN_PROTOCOL_ARGV = [
+    "+experiment=re10k", "mode=train", "loss.lpips.allow_random_weights=true", "trainer.max_steps=4",
+    "trainer.val_check_interval=1", "checkpointing.every_n_train_steps=2", "trainer.log_every_n_steps=1",
+]
+RESUME_STEPS = 6
+DEPTH_LOSS_ARGV = [
+    "+experiment=re10k_depth_loss", "mode=train", "loss.lpips.allow_random_weights=true", "trainer.max_steps=2",
+    "trainer.val_check_interval=0", "checkpointing.every_n_train_steps=2", "trainer.log_every_n_steps=1",
+]
+
+
+class Captured:
+    """What `main` does not return: the trainer that `build_everything`
+    makes and, when `reference` (a TrainState) is given, whether the state
+    that `load_state_dict` restores equals it bit for bit."""
+
+    def __init__(self, torch, reference=None):
+        self.torch, self.reference, self.trainer, self.loaded = torch, reference, None, None
+
+    def __enter__(self):
+        from pixelsplat_tpu_torch import main as cli
+        from pixelsplat_tpu_torch.training.model_wrapper import ModelWrapper
+
+        torch, watch = self.torch, self
+        build, load = self.originals = cli.build_everything, ModelWrapper.load_state_dict
+
+        def build_everything(*a, **k):
+            watch.trainer = build(*a, **k)
+            return watch.trainer
+
+        def load_state_dict(self, state, payload):
+            state = load(self, state, payload)
+            ref = watch.reference
+            if ref is not None:
+                adam, ref_adam = state.optimizer.adam.state, ref.optimizer.adam.state
+                params = sum(not torch.equal(p, ref.params[k]) for k, p in state.params.items())
+                moments = sum(
+                    adam[p].keys() != ref_adam[ref.params[k]].keys()
+                    or any(not torch.equal(v, ref_adam[ref.params[k]][n]) for n, v in adam[p].items())
+                    for k, p in state.params.items()
+                )
+                watch.loaded = dict(step=state.step, params_differ=params, moments_differ=moments,
+                                    tensors=len(state.params))
+            return state
+
+        cli.build_everything, ModelWrapper.load_state_dict = build_everything, load_state_dict
+        return self
+
+    def __exit__(self, *exc):
+        from pixelsplat_tpu_torch import main as cli
+        from pixelsplat_tpu_torch.training.model_wrapper import ModelWrapper
+
+        cli.build_everything, ModelWrapper.load_state_dict = self.originals
+        return False
+
+
+def report_fit(label, out, accumulate, card) -> dict:
+    """Prints a run's per-step, validation and checkpoint timings, as `fit`
+    writes them to `out/benchmark.json` (data waits, steps, validation and
+    checkpoint saves on the host clock; each micro-batch's forward and
+    backward and the optimizer on CUDA events), beside the card line and
+    the peak of `out/peak_memory.json`; returns their summary and the
+    number of checkpoint saves."""
+    ms = {k: [1e3 * t for t in v] for k, v in json.loads((out / "benchmark.json").read_text()).items()}
+    steps = []
+    for k, step_ms in enumerate(ms["step"]):
+        micro = slice(k * accumulate, (k + 1) * accumulate)
+        steps.append(dict(data_ms=ms["data"][k], forward_ms=ms["forward"][micro], backward_ms=ms["backward"][micro],
+                          optimizer_ms=ms["optimizer"][k], step_ms=step_ms))
+        st = steps[-1]
+        fb = [f + b for f, b in zip(st["forward_ms"], st["backward_ms"])]
+        phase("timing", f"train_protocol {label} | {card} | step {k + 1}: data wait {st['data_ms']:.1f} ms (host), "
+              f"{len(fb)} micro-batch(es) forward + backward {[round(x, 1) for x in fb]} ms (forward "
+              f"{[round(x, 1) for x in st['forward_ms']]}; CUDA events), optimizer {st['optimizer_ms']:.2f} ms, "
+              f"step {st['step_ms']:.1f} ms (host)")
+    later = steps[1:] or steps
+    saved = sorted(int(p.name.split("_")[1]) for p in (out / "checkpoints").iterdir())[-len(ms.get("checkpoint", [])):]
+    summary = dict(
+        step_ms=sorted(s["step_ms"] for s in later)[len(later) // 2],
+        micro_ms=sum(sum(s["forward_ms"]) + sum(s["backward_ms"]) for s in later)
+        / sum(len(s["forward_ms"]) for s in later),
+        optimizer_ms=sum(s["optimizer_ms"] for s in later) / len(later),
+        first_wait_ms=ms["data"][0], later_wait_ms=sorted(ms["data"][1:]),
+        validation_ms=ms.get("validation", []),
+        checkpoints=[(step, t, (out / "checkpoints" / f"step_{step}").stat().st_size / 2**20)
+                     for step, t in zip(saved, ms.get("checkpoint", []))],
+        peak_gib=json.loads((out / "peak_memory.json").read_text())["peak_bytes_in_use"] / 2**30,
+    )
+    phase("timing", f"train_protocol {label} | {card} | median step {summary['step_ms']:.1f} ms after the first, "
+          f"forward + backward {summary['micro_ms']:.1f} ms per micro-batch, optimizer {summary['optimizer_ms']:.2f} ms; "
+          f"data wait {summary['first_wait_ms']:.1f} ms for the first batch, then "
+          f"{[round(x, 2) for x in summary['later_wait_ms']]} ms; validation ms "
+          f"{[round(x, 1) for x in summary['validation_ms']]}; checkpoint saves (step, ms, MiB) "
+          f"{[(s, round(t, 1), round(m, 1)) for s, t, m in summary['checkpoints']]}; peak memory "
+          f"{summary['peak_gib']:.2f} GiB")
+    return summary
+
+
+def validation_steps(start: int, end: int, interval: int) -> list[int]:
+    """The steps of a `fit` from `start` to `end` that validate: every other
+    multiple of `interval`, from the first (the one-batch iterator is spent
+    at the check after a pass, and restarted at the next)."""
+    out, fresh = [], True
+    for step in range(start + 1, end + 1):
+        if interval > 0 and step % interval == 0:
+            if fresh:
+                out.append(step)
+            fresh = not fresh
+    return out
+
+
+def logged(out) -> tuple[dict, dict]:
+    """(training parts by step, validation metrics by step) of a run's log."""
+    lines = [json.loads(x) for x in (out / "local" / "metrics.jsonl").read_text().splitlines()]
+    train = {x["step"]: x for x in lines if "loss/total" in x}
+    val = {x["step"]: x for x in lines if "val/psnr_probabilistic" in x}
+    return train, val
+
+
+def check_logged(label, train, steps, need=()):
+    for step in steps:
+        if step not in train:
+            fail(f"train_protocol {label}: step {step} not logged ({sorted(train)})")
+        bad = [k for k, v in train[step].items() if k != "step" and not math.isfinite(v)]
+        if bad or train[step]["train/overflow_pairs"] != 0 or any(k not in train[step] for k in need):
+            fail(f"train_protocol {label}: step {step} logged {train[step]}")
+
+
+def train_protocol_phase(torch, kernels) -> dict:
+    """`pixelsplat_tpu_torch.main.main` in this process in `mode=train`, as
+    `python -m pixelsplat_tpu_torch.main +experiment=re10k mode=train` runs
+    it (cuDNN's TF32 on, as the CLI leaves it), on the fixture made into a
+    train split, at full width with the configured data workers: run A
+    trains `re10k`'s recipe 4 steps with validation and checkpoints, run B
+    resumes it to step 6, run C trains `re10k_depth_loss` 2 steps; then K1
+    and K2 against their plain versions on run C's depth renders."""
+    import gc
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+    from PIL import Image
+
+    from pixelsplat_tpu_torch import main as cli
+    from pixelsplat_tpu_torch.config import NUM_TARGET_VIEWS, load_config
+    from pixelsplat_tpu_torch.ops.rasterizer import composite_kernel
+    from pixelsplat_tpu_torch.scripts.eval_scene import card_line, cuda_ms
+    from pixelsplat_tpu_torch.scripts.train_fixture import FIXTURE_OVERRIDES, write_train_root
+    from pixelsplat_tpu_torch.scripts.train_scene import backward_inputs
+    from pixelsplat_tpu_torch.visualization.annotation import add_label
+    from pixelsplat_tpu_torch.visualization.layout import add_border, hcat, vcat
+
+    card = card_line()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    result = {"launches": {}}
+
+    def run(argv, reference=None):
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        with Captured(torch, reference) as captured:
+            t0 = time.perf_counter()
+            state = cli.main(argv)
+            seconds = time.perf_counter() - t0
+        return state, captured, {name: fn.launches for name, fn in kernels.items()}, seconds
+
+    def expect_launches(label, launches, fwd, bwd):
+        if launches["composite_fwd"] != fwd or launches["composite_bwd"] != bwd or any(
+            n for k, n in launches.items() if k not in ("composite_fwd", "composite_bwd")
+        ):
+            fail(f"train_protocol {label}: launches {launches}, expected composite_fwd {fwd}, composite_bwd {bwd}")
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            root = write_train_root(tmp / "re10k")
+            common = [f"dataset.roots=[{root}]", *FIXTURE_OVERRIDES]
+            out = tmp / "outputs"
+            argv_a = TRAIN_PROTOCOL_ARGV + common + [f"output_dir={out}"]
+            cfg = load_config(argv_a)
+            batch, accumulate = cfg.data_loader.train.batch_size, cfg.trainer.accumulate_grad_batches
+            steps_a, every = cfg.trainer.max_steps, cfg.checkpointing.every_n_train_steps
+            phase("train_protocol", f"main {' '.join(TRAIN_PROTOCOL_ARGV)} on the fixture's train split; cuts: "
+                  f"{' '.join(FIXTURE_OVERRIDES)}; batch {batch}, accumulate {accumulate}, remat_encoder "
+                  f"{cfg.train.remat_encoder}, {cfg.data_loader.train.num_workers} train and "
+                  f"{cfg.data_loader.val.num_workers} val workers, images {cfg.dataset.image_shape}, "
+                  f"{cfg.dataset.view_sampler.num_target_views} target views, cuDNN TF32 on")
+
+            # Run A: the recipe from fresh weights.
+            held_gib = torch.cuda.memory_allocated() / 2**30
+            state_a, captured_a, launches, seconds = run(argv_a)
+            result["launches"]["train_protocol re10k"] = launches
+            trainer = captured_a.trainer
+            train, val = logged(out)
+            phase("train_protocol", f"run A: main returned step {state_a.step} in {seconds:.1f} s; step tracker "
+                  f"{trainer.step_tracker.get_step()}; checkpoints "
+                  f"{sorted(p.name for p in (out / 'checkpoints').iterdir())}; validation "
+                  f"{({s: {k: round(v, 4) for k, v in x.items() if k != 'step'} for s, x in val.items()})}; "
+                  f"launches {launches}")
+            for step, parts in train.items():
+                phase("train_protocol", f"run A step {step}: " + ", ".join(
+                    f"{k} {v:.6g}" for k, v in parts.items() if k != "step"))
+            if state_a.step != steps_a or trainer.step_tracker.get_step() != steps_a:
+                fail(f"train_protocol: run A ended at step {state_a.step}, tracker {trainer.step_tracker.get_step()}")
+            check_logged("run A", train, range(1, steps_a + 1))
+            want_ckpts = [f"step_{s}" for s in range(every, steps_a + 1, every)]
+            saves = len(json.loads((out / "benchmark.json").read_text()).get("checkpoint", []))
+            if sorted(p.name for p in (out / "checkpoints").iterdir()) != want_ckpts or saves != len(want_ckpts):
+                fail(f"train_protocol: run A saved {saves} time(s), expected {want_ckpts} once each")
+            val_steps = validation_steps(0, steps_a, cfg.trainer.val_check_interval)
+            if sorted(val) != val_steps or not all(
+                math.isfinite(x[f"val/{m}_{v}"]) for x in val.values() for m in ("psnr", "ssim")
+                for v in ("probabilistic", "deterministic")
+            ):
+                fail(f"train_protocol: run A validation {val}, expected finite PSNR and SSIM at steps {val_steps}")
+            h, w = cfg.dataset.image_shape
+            grid = add_border(vcat(*(
+                add_label(hcat(*([np.zeros((3, h, w), np.float32)] * n)), label)
+                for n, label in ((2, "Context"), (4, "Target (GT)"), (4, "Target (probabilistic)"),
+                                 (4, "Target (deterministic)"))
+            )))
+            grids = sorted((out / "local" / "comparison").iterdir())
+            sizes = [Image.open(p).size for p in grids]
+            if [p.name for p in grids] != [f"{s:06d}.png" for s in val_steps] or set(sizes) != {grid.shape[:0:-1]}:
+                fail(f"train_protocol: comparison grids {[p.name for p in grids]} of sizes {sizes}, expected "
+                     f"{grid.shape[:0:-1]} at steps {val_steps}")
+            # The weights moved between the first checkpoint and the last step.
+            earlier = torch.load(out / "checkpoints" / want_ckpts[0], map_location="cuda")["params"]
+            moved = sum(bool((earlier[k] != p.detach()).any()) for k, p in state_a.params.items())
+            del earlier
+            if moved < len(state_a.params) // 2:
+                fail(f"train_protocol: run A moved {moved} of {len(state_a.params)} parameter tensors after "
+                     f"{want_ckpts[0]}")
+            per_view = steps_a * batch * NUM_TARGET_VIEWS
+            expect_launches("run A", launches, per_view + len(val_steps) * 2 * NUM_TARGET_VIEWS, per_view)
+            phase("train_protocol", f"run A: {moved}/{len(state_a.params)} parameter tensors moved after "
+                  f"{want_ckpts[0]}; grids "
+                  f"{[p.name for p in grids]} at {sizes[0]}; composite_fwd {launches['composite_fwd']} = "
+                  f"{steps_a} steps x {batch} examples x {NUM_TARGET_VIEWS} views + {len(val_steps)} validations x 2 "
+                  f"variants x {NUM_TARGET_VIEWS}; composite_bwd {launches['composite_bwd']}")
+            result["re10k"] = report_fit("re10k", out, accumulate, card)
+            result["re10k"]["held_gib"] = held_gib
+            del trainer, captured_a
+
+            # Run B: the same command to step 6 resumes from the latest checkpoint.
+            argv_b = argv_a + [f"trainer.max_steps={RESUME_STEPS}"]
+            state_b, captured_b, launches, seconds = run(argv_b, reference=state_a)
+            result["launches"]["train_protocol resume"] = launches
+            loaded = captured_b.loaded
+            phase("train_protocol", f"run B: resumed {loaded}; main returned step {state_b.step} in {seconds:.1f} s; "
+                  f"checkpoints {sorted(p.name for p in (out / 'checkpoints').iterdir())}; launches {launches}")
+            if loaded is None or loaded["step"] != steps_a or loaded["params_differ"] or loaded["moments_differ"]:
+                fail(f"train_protocol: run B did not restore run A's state bit for bit: {loaded}")
+            if state_b.step != RESUME_STEPS:
+                fail(f"train_protocol: run B ended at step {state_b.step}")
+            train, val = logged(out)
+            check_logged("run B", train, range(steps_a + 1, RESUME_STEPS + 1))
+            resumed, val_b = RESUME_STEPS - steps_a, validation_steps(steps_a, RESUME_STEPS, cfg.trainer.val_check_interval)
+            if sorted(s for s in val if s > steps_a) != val_b:
+                fail(f"train_protocol: run B validated at {sorted(val)}, expected {val_b} after step {steps_a}")
+            expect_launches("run B", launches, resumed * batch * NUM_TARGET_VIEWS + len(val_b) * 2 * NUM_TARGET_VIEWS,
+                            resumed * batch * NUM_TARGET_VIEWS)
+            result["resume"] = report_fit("resume", out, accumulate, card)
+            del state_a, state_b, captured_b
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # Run C: re10k_depth_loss as its recipe is; out of memory fails the run.
+            out_c = tmp / "outputs_depth"
+            argv_c = DEPTH_LOSS_ARGV + common + [f"output_dir={out_c}"]
+            cfg_c = load_config(argv_c)
+            phase("train_protocol", f"run C: main {' '.join(DEPTH_LOSS_ARGV)}: batch {cfg_c.data_loader.train.batch_size}, "
+                  f"accumulate {cfg_c.trainer.accumulate_grad_batches}, remat_encoder {cfg_c.train.remat_encoder}, "
+                  f"depth_mode {cfg_c.train.depth_mode}")
+            try:
+                state_c, captured_c, launches, seconds = run(argv_c)
+            except torch.cuda.OutOfMemoryError as exc:
+                fail(f"train_protocol: run C ran out of memory as configured (peak "
+                     f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB before the failed allocation): "
+                     f"{str(exc).splitlines()[0]}")
+            result["launches"]["train_protocol re10k_depth_loss"] = launches
+            train, _ = logged(out_c)
+            for step, parts in train.items():
+                phase("train_protocol", f"run C step {step}: " + ", ".join(
+                    f"{k} {v:.6g}" for k, v in parts.items() if k != "step"))
+            steps_c, batch_c = cfg_c.trainer.max_steps, cfg_c.data_loader.train.batch_size
+            if state_c.step != steps_c:
+                fail(f"train_protocol: run C ended at step {state_c.step}")
+            check_logged("run C", train, range(1, steps_c + 1), need=("loss/depth",))
+            per_view = steps_c * batch_c * NUM_TARGET_VIEWS
+            expect_launches("run C", launches, 2 * per_view, 2 * per_view)
+            phase("train_protocol", f"run C: main returned step {state_c.step} in {seconds:.1f} s; launches {launches} "
+                  f"= 2 x ({steps_c} steps x {batch_c} examples x {NUM_TARGET_VIEWS} views): colour and depth")
+            result["re10k_depth_loss"] = report_fit("re10k_depth_loss", out_c, cfg_c.trainer.accumulate_grad_batches, card)
+
+            # K1 and K2 against their plain versions on run C's depth renders:
+            # the first batch of a new train stream, the weights the run ended with.
+            wrapper = captured_c.trainer.wrapper
+            first_batch = next(iter(captured_c.trainer.data_module.train_dataloader()))
+            batch_arrays = {k: v for k, v in first_batch.items() if k != "scene"}
+            scene = SimpleNamespace(wrapper=wrapper, state=state_c)
+            inputs = backward_inputs(scene, batch_arrays, seed=SEED, depth_mode=cfg_c.train.depth_mode)
+            # Pixels no Gaussian reaches keep T = 1 and render depth 0, where
+            # the JAX package's depth loss takes 1 / 0; the port's leaves them out.
+            empty = [int((inp["trans"] == 1.0).sum()) for inp in inputs]
+            phase("train_protocol", f"run C: pixels of depth 0 (T = 1) in the first batch's first example, per "
+                  f"target view: {empty} of {inputs[0]['trans'].numel()}")
+            result["empty_pixels"] = empty
+            fwd_errs, bwd_errs, timing = [], [], dict(k1=[], k1_plain=[], k1_bound=[], k2=[], k2_plain=[], k2_bound=[])
+            for v, inp in enumerate(inputs):
+                if not all(bool(x.isfinite().all()) for x in (inp["g_acc"], inp["g_trans"])):
+                    fail(f"train_protocol: view {v}'s depth loss cotangent is not finite (a pixel of depth 0?)")
+                tiles, table, chunk, tiles_x = inp["tiles"], inp["table"], inp["chunk"], inp["tiles_x"]
+                scale = max(1.0, float(table[:, 6:].abs().max()))
+                err, n_k = check_kernel_against_plain(composite_kernel, f"depth {v}", tiles, table, chunk, tiles_x)
+                if float(table[:, 7:].abs().max()) != 0.0:
+                    fail(f"train_protocol: view {v}'s depth table has more than one colour channel")
+                if err > KERNEL_ATOL * scale:
+                    fail(f"train_protocol: composite_fwd on depth view {v}: {err:.3g} > {KERNEL_ATOL} x {scale:.3g}")
+                fwd_errs.append(err)
+                bwd_errs.append(check_bwd_kernel_against_plain(f"depth {v}", inp))
+                args = (table, tiles.flat, tiles.block_start, tiles.counts, tiles_x, chunk)
+                timing["k1"].append(cuda_ms(lambda: composite_kernel.composite_core(*args), iters=20))
+                timing["k1_plain"].append(cuda_ms(lambda: composite_kernel.composite_core_plain(*args), iters=2, warmup=1))
+                timing["k1_bound"].append(composite_bound_ms(tiles, table, n_k, chunk))
+                timing["k2"].append(cuda_ms(lambda: composite_kernel.composite_bwd(*bwd_args(inp)), iters=20))
+                timing["k2_plain"].append(
+                    cuda_ms(lambda: composite_kernel.composite_bwd_plain(*bwd_args(inp)), iters=2, warmup=1)
+                )
+                timing["k2_bound"].append(composite_bwd_bound_ms(inp))
+            result["depth_fwd"] = summarize(timing["k1"], timing["k1_plain"], timing["k1_bound"]) + (max(fwd_errs),)
+            result["depth_bwd"] = summarize(timing["k2"], timing["k2_plain"], timing["k2_bound"]) + (
+                max(e[1] for e in bwd_errs), max(e[0] for e in bwd_errs), sum(e[2] for e in bwd_errs))
+            f1, f2 = result["depth_fwd"], result["depth_bwd"]
+            phase("timing", f"train_protocol depth renders ({colour_channels(inputs[0]['table'])} colour channel in "
+                  f"the bounds) | {card} | composite_fwd {f1[0]:.4f} ms/launch, plain "
+                  f"{f1[1]:.3f} ms, bound {f1[2]:.4f} ms ({f1[3]}), max |err| {f1[4]:.3g}; composite_bwd {f2[0]:.4f} "
+                  f"ms/call, plain {f2[1]:.3f} ms, bound {f2[2]:.4f} ms ({f2[3]}), max |err| {f2[4]:.3g}, max err / "
+                  f"column max {f2[5]:.3g}, {f2[6]} threshold tiles explained")
+            del state_c, captured_c, wrapper, scene, inputs, first_batch, batch_arrays
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return result
+
+
 def tools_phase(torch, kernels, first_view):
     """The kernel tools' path (the segment-sum bench's checks and the stage
     ablation on `first_view`'s lists), then each tool kernel against its
@@ -901,11 +1306,20 @@ def main() -> None:
     # 6. tools, on the production model's first view
     tools = tools_phase(torch, kernels, results[RE10K]["first_view"])
 
+    # 7. training through the CLI's entry point, resumed, and with the depth loss
+    training = train_protocol_phase(torch, kernels)
+
     by_path = {"tools": {name: smoke_launches[name] + tools["launches"][name] for name in kernels}}
     by_path["eval_protocol"] = protocol["launches"]
+    by_path.update(training["launches"])
     for model, r in results.items():
         for path, counts in r["launches"].items():
             by_path[f"{model} {path}"] = counts
+
+    def depth_numbers(r):
+        """A compositing kernel on the depth renders of `re10k_depth_loss`
+        (one colour channel): ms, plain ms, bound ms, what binds, max |err|."""
+        return dict(depth_ms=r[0], depth_plain_ms=r[1], depth_bound_ms=r[2], depth_bound_by=r[3], depth_max_abs_err=r[4])
 
     def entry(name, source, replaces, **numbers):
         per_path = {path: counts[name] for path, counts in by_path.items() if counts[name]}
@@ -926,6 +1340,7 @@ def main() -> None:
                 plain_ms=main_model["fwd"][1], bound_ms=main_model["fwd"][2], bound_by=main_model["fwd"][3],
                 longest_tile_ms=main_model["fwd"][4],
                 library_ms=None, ms_by_model={m: r["fwd"][0] for m, r in results.items()},
+                **depth_numbers(training["depth_fwd"]),
             ),
             entry(
                 "composite_bwd", "composite_bwd.cu", "pixelsplat_tpu/ops/rasterizer/pallas_backward.py:234",
@@ -937,6 +1352,7 @@ def main() -> None:
                 plain_ms=main_model["bwd"][1], bound_ms=main_model["bwd"][2], bound_by=main_model["bwd"][3],
                 longest_tile_ms=main_model["bwd"][4],
                 library_ms=None, ms_by_model={m: r["bwd"][0] for m, r in results.items()},
+                **depth_numbers(training["depth_bwd"]), depth_max_rel_err=training["depth_bwd"][5],
             ),
             entry(
                 "copy_rows", "copy_rows.cu", "tools/bench_segment_sum.py:112",

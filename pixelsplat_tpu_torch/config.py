@@ -11,8 +11,8 @@ overrides (`a.b.c=value`, `+experiment=re10k`, group selections such as
 `dataset/view_sampler=evaluation`); the composed dict becomes a `RootCfg`
 of the port's dataclasses (unions of configs told apart by their `name`).
 
-The presets build the model configuration of two experiments without the
-YAML files, and equal what `load_config` composes for them. `re10k`
+The presets build the model and training configuration of three
+experiments without the YAML files, and equal what `load_config` composes for them. `re10k`
 (`config/experiment/re10k.yaml`) is the production model: the DINO
 ViT-B/8 + dino_resnet50 backbone, d_feature 128, the epipolar transformer
 (downscale 4, 32 samples per line, 2 cross-attention layers whose
@@ -21,6 +21,8 @@ octaves), 32 depth buckets, 3 Gaussians per pixel and degree-4 SH, trained
 with MSE + LPIPS (from step 150,000) by Adam at 1.5e-4 with a 2,000-step
 warm-up and a 0.5 global-norm clip (`config/main.yaml`), the encoder
 rematerialized and 7 batches accumulated per update.
+`re10k_depth_loss` trains the same model on MSE + LPIPS + a depth
+smoothness loss on a rendered depth map, without remat or accumulation.
 `re10k_ablation_no_epipolar_transformer` is the published ablation without
 the transformer, remat or accumulation.
 """
@@ -454,9 +456,28 @@ def re10k_ablation_no_epipolar_transformer_training() -> TrainingCfg:
     )
 
 
+def re10k_depth_loss_training() -> TrainingCfg:
+    """The `re10k_depth_loss` experiment's training settings (its model is
+    `re10k`'s): a rendered depth map per target view (`depth_mode: depth`)
+    and the losses `[mse, lpips, depth]`, without remat or accumulation
+    (`config/main.yaml`'s defaults)."""
+    return TrainingCfg(
+        optimizer=OptimizerCfg(lr=1.5e-4, warm_up_steps=2000),
+        train=TrainCfg(depth_mode="depth", extended_visualization=False, remat_encoder=False),
+        loss=(
+            LossMseCfg(weight=1.0),
+            LossLpipsCfg(weight=0.05, apply_after_step=150_000),
+            LossDepthCfg(weight=0.25, sigma_image=None, use_second_derivative=False),
+        ),
+        gradient_clip_val=0.5,
+        accumulate_grad_batches=1,
+    )
+
+
 # (model config, training config) by experiment name, for the scripts.
 EXPERIMENTS = {
     "re10k": (re10k, re10k_training),
+    "re10k_depth_loss": (re10k, re10k_depth_loss_training),
     "re10k_ablation_no_epipolar_transformer": (
         re10k_ablation_no_epipolar_transformer,
         re10k_ablation_no_epipolar_transformer_training,
@@ -501,6 +522,7 @@ __all__ = [
     "EXPERIMENTS",
     "re10k",
     "re10k_training",
+    "re10k_depth_loss_training",
     "re10k_ablation_no_epipolar_transformer",
     "re10k_ablation_no_epipolar_transformer_training",
 ]

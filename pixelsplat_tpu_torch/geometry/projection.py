@@ -1,14 +1,16 @@
 """Camera projection math in PyTorch.
 
-Port of `pixelsplat_tpu/geometry/projection.py` (all but
-`sample_training_rays`). Conventions are the reference's: extrinsics are
-OpenCV-style camera-to-world 4x4 matrices, intrinsics are 3x3 and
-normalized (row 0 divided by the image width, row 1 by its height).
+Port of `pixelsplat_tpu/geometry/projection.py`. Conventions are the
+reference's: extrinsics are OpenCV-style camera-to-world 4x4 matrices,
+intrinsics are 3x3 and normalized (row 0 divided by the image width, row
+1 by its height).
 
 Every function broadcasts over leading batch dimensions.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -132,6 +134,37 @@ def sample_image_grid(
     coordinates = list(reversed(coordinates))
     coordinates = torch.stack(torch.meshgrid(*coordinates, indexing="xy"), dim=-1)
     return coordinates, stacked_indices
+
+
+def sample_training_rays(
+    image: torch.Tensor,  # (b, v, c, h, w)
+    intrinsics: torch.Tensor,  # (b, v, 3, 3)
+    extrinsics: torch.Tensor,  # (b, v, 4, 4)
+    num_rays: int,
+    generator: Optional[torch.Generator] = None,
+    ray_indices: Optional[torch.Tensor] = None,  # (b, num_rays) int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`num_rays` random rays per batch element over all of its views and
+    pixels: (origins, directions, colours), each (b, num_rays, 3 or c).
+
+    The rays are drawn uniformly, with replacement, from `generator`, or
+    given as indices into the flattened (view, row, column) grid.
+    """
+    b, v, c, h, w = image.shape
+    xy, _ = sample_image_grid((h, w), device=image.device, dtype=image.dtype)  # (h, w, 2)
+    origins, directions = get_world_rays(
+        xy[:, :, None, None, :], extrinsics[None, None], intrinsics[None, None]
+    )  # (h, w, b, v, 3)
+    origins = origins.permute(2, 3, 0, 1, 4).reshape(b, v * h * w, 3)
+    directions = directions.permute(2, 3, 0, 1, 4).reshape(b, v * h * w, 3)
+    pixels = image.permute(0, 1, 3, 4, 2).reshape(b, v * h * w, c)
+    if ray_indices is None:
+        ray_indices = torch.randint(
+            0, v * h * w, (b, num_rays), generator=generator, device=image.device
+        )
+    index = ray_indices.long().to(image.device)[..., None]
+    take = lambda x: torch.gather(x, 1, index.expand(-1, -1, x.shape[-1]))  # noqa: E731
+    return take(origins), take(directions), take(pixels)
 
 
 def intersect_rays(

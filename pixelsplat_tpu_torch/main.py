@@ -2,10 +2,23 @@
 
 Port of `pixelsplat_tpu/main.py`: composes the config from the YAML files
 under `config/` with the overrides, builds the data module, the model
-wrapper and the trainer, and runs `mode`. `mode=test` loads the
-checkpoint that `checkpointing.load` names (a `torch.save` checkpoint of
-this package, `training/checkpoint.py`) and runs the evaluation protocol
-(`Trainer.test`). The evaluation on the card, on the repo's fixture:
+wrapper and the trainer, and runs `mode`.
+
+`mode=train` (the default) trains with `Trainer.fit`: from
+`checkpointing.load` when it is set, else from the latest checkpoint under
+`output_dir/checkpoints` when there is one, else from fresh weights. It
+writes `checkpoints/step_<n>` (a `torch.save` checkpoint of parameters,
+Adam's state and the step), `local/metrics.jsonl` and the validation grids
+`local/comparison/<step>.png` under `output_dir`. The losses, LPIPS's
+among them, are built only for training; the LPIPS loss demands the
+exported VGG weights unless `loss.lpips.allow_random_weights=true`.
+
+    python -m pixelsplat_tpu_torch.main +experiment=re10k \\
+        dataset.roots=[<re10k root>] output_dir=<dir>
+
+`mode=test` loads the checkpoint that `checkpointing.load` names and runs
+the evaluation protocol (`Trainer.test`). The evaluation on the card, on
+the repo's fixture:
 
     python -m pixelsplat_tpu_torch.main +experiment=re10k mode=test \\
         dataset.roots=[tests/fixtures/re10k] dataset/view_sampler=evaluation \\
@@ -20,14 +33,14 @@ from __future__ import annotations
 
 import sys
 from pathlib import Path
-from typing import Optional, Union
+from typing import Union
 
 import torch
 
 from .config import RootCfg, load_config
 from .dataset.data_module import DataModule
-from .training.checkpoint import load_checkpoint
-from .training.model_wrapper import ModelWrapper, resolve_device
+from .training.checkpoint import latest_checkpoint, load_checkpoint
+from .training.model_wrapper import ModelWrapper, TrainState, resolve_device
 from .training.trainer import Trainer
 from .utils.step_tracker import StepTracker
 from .utils.wandb_tools import select_logger, update_checkpoint_path
@@ -68,16 +81,17 @@ def build_everything(cfg: RootCfg, device: Union[str, torch.device] = "cuda") ->
     )
 
 
-def main(argv: list[str], device: Union[str, torch.device] = "cuda") -> Optional[dict]:
-    """Run the configured mode; `mode=test` returns `Trainer.test`'s summary."""
+def main(argv: list[str], device: Union[str, torch.device] = "cuda") -> Union[TrainState, dict]:
+    """Run the configured mode: `mode=train` returns the final `TrainState`,
+    `mode=test` `Trainer.test`'s summary."""
     cfg = load_config(argv)
     device = resolve_device(device)
     print(cyan(f"mode={cfg.mode} device={device}"))
     if cfg.mode == "train":
-        raise NotImplementedError(
-            "mode=train: Trainer.fit (training with validation and checkpoints) is not "
-            "ported yet; it is ROADMAP.md queue 1, item 1"
-        )
+        resume = update_checkpoint_path(cfg.checkpointing.load, cfg.wandb)
+        if resume is None:
+            resume = latest_checkpoint(Path(cfg.output_dir) / "checkpoints")
+        return build_everything(cfg, device).fit(resume_from=resume)
     if cfg.mode != "test":
         raise ValueError(f"Unknown mode {cfg.mode!r}")
     if cfg.checkpointing.load is None:

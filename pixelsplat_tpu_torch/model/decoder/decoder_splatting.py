@@ -1,9 +1,10 @@
 """Decoder: render Gaussians into the target views with the tiled rasterizer.
 
-Port of `pixelsplat_tpu/model/decoder/decoder_splatting.py` (colour only).
-The scene is packed to structure-of-arrays once per batch element, or
-arrives packed from the encoder (`GaussiansSoA`), and each target view is
-rendered from it in turn.
+Port of `pixelsplat_tpu/model/decoder/decoder_splatting.py`. The scene is
+packed to structure-of-arrays once per batch element, or arrives packed
+from the encoder (`GaussiansSoA`), and each target view is rendered from it
+in turn. With a `depth_mode` each view is also rendered as depth
+(`render_depth`, one colour channel), from the public AoS Gaussians only.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Literal, NamedTuple, Optional, Union
 import torch
 
 from ...ops.rasterizer.projection import GaussiansSoA, pack_gaussians_soa
-from ...ops.rasterizer.render import RenderSettings, render_view_soa
+from ...ops.rasterizer.render import DepthRenderingMode, RenderSettings, render_depth, render_view_soa
 from ..types import Gaussians
 
 
@@ -46,14 +47,11 @@ class DecoderSplatting:
         near: torch.Tensor,  # (b, v)
         far: torch.Tensor,  # (b, v)
         image_shape: tuple[int, int],
-        depth_mode: Optional[str] = None,
+        depth_mode: Optional[DepthRenderingMode] = None,
         render_settings: Optional[RenderSettings] = None,
     ) -> DecoderOutput:
-        if depth_mode is not None:
-            raise NotImplementedError(
-                "depth_mode: depth rendering comes with the slice that ports the "
-                "production re10k config (render_depth)"
-            )
+        if depth_mode is not None and isinstance(gaussians, GaussiansSoA):
+            raise NotImplementedError("depth_mode rendering takes the public AoS Gaussians")
         settings = render_settings if render_settings is not None else self.cfg.render
         background = torch.tensor(
             self.cfg.background_color, dtype=extrinsics.dtype, device=extrinsics.device
@@ -78,6 +76,19 @@ class DecoderSplatting:
             ]
             colors.append(torch.stack([image for image, _ in views]))
             overflows.extend(overflow for _, overflow in views)
+        depth = None
+        if depth_mode is not None:
+            depth = torch.stack([
+                torch.cat([
+                    render_depth(
+                        extrinsics[i, j, None], intrinsics[i, j, None], near[i, j, None], far[i, j, None],
+                        image_shape, gaussians.means[i, None], gaussians.covariances[i, None],
+                        gaussians.opacities[i, None], mode=depth_mode, settings=settings,
+                    )
+                    for j in range(extrinsics.shape[1])
+                ])
+                for i in range(extrinsics.shape[0])
+            ])  # (b, v, h, w)
         return DecoderOutput(
-            color=torch.stack(colors), depth=None, overflow=torch.stack(overflows).sum(dtype=torch.int32)
+            color=torch.stack(colors), depth=depth, overflow=torch.stack(overflows).sum(dtype=torch.int32)
         )

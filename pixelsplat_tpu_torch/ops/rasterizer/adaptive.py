@@ -1,11 +1,12 @@
 """Occupancy-adaptive render settings for evaluation.
 
 Port of `pixelsplat_tpu/ops/rasterizer/adaptive.py` (`_occupancy_stats`,
-`choose_settings`). A cheap bounding-box pre-pass measures the scene's
-largest per-tile list and its flat pair demand; the smallest sufficient
-capacity and pair budget then render without dropping a pair, because the
-pre-pass bounds what binning (which also culls by the exact ellipse)
-produces. Choosing costs one host sync, so it runs once per scene.
+`choose_settings`, `render_adaptive`). A cheap bounding-box pre-pass
+measures the scene's largest per-tile list and its flat pair demand; the
+smallest sufficient capacity and pair budget then render without dropping
+a pair, because the pre-pass bounds what binning (which also culls by the
+exact ellipse) produces. Choosing costs one host sync, so it runs once per
+scene.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from .binning import tile_occupancy
 from .projection import project_gaussians
-from .render import DEFAULT_SETTINGS, RenderSettings
+from .render import DEFAULT_SETTINGS, RenderSettings, render
 
 
 def _occupancy_stats(
@@ -87,3 +88,32 @@ def choose_settings(
     worst = settings.span**2 * g + num_tiles * (settings.big_capacity + settings.chunk)
     pair_budget = -(-max(min(budget, worst), 65536) // settings.chunk) * settings.chunk
     return replace(chosen, pair_budget=pair_budget)
+
+
+def render_adaptive(
+    extrinsics: torch.Tensor,  # (b, 4, 4)
+    intrinsics: torch.Tensor,  # (b, 3, 3)
+    near: torch.Tensor,  # (b,)
+    far: torch.Tensor,  # (b,)
+    image_shape: tuple[int, int],
+    background_color: torch.Tensor,  # (b, c)
+    gaussian_means: torch.Tensor,  # (b, g, 3)
+    gaussian_covariances: torch.Tensor,  # (b, g, 3, 3)
+    gaussian_sh_coefficients: torch.Tensor,  # (b, g, 3, d_sh) or (b, g, c)
+    gaussian_opacities: torch.Tensor,  # (b, g)
+    use_sh: bool = True,
+    settings: RenderSettings = DEFAULT_SETTINGS,
+    capacities: tuple[int, ...] = (512, 1024, 2048),
+) -> torch.Tensor:
+    """`render(..., scale_invariant=True)` at the smallest sufficient
+    capacity and pair budget for these views (`settings.capacity` when the
+    scene exceeds every candidate): the same image, since no list is cut."""
+    chosen = choose_settings(
+        extrinsics, intrinsics, near, gaussian_means, gaussian_covariances, gaussian_opacities,
+        image_shape, settings=settings, capacities=capacities,
+    )
+    return render(
+        extrinsics, intrinsics, near, far, image_shape, background_color, gaussian_means,
+        gaussian_covariances, gaussian_sh_coefficients, gaussian_opacities,
+        scale_invariant=True, use_sh=use_sh, settings=chosen,
+    )

@@ -1,18 +1,22 @@
 """Public rendering API: Gaussian splatting of one or more views.
 
-Port of `pixelsplat_tpu/ops/rasterizer/render.py` (`RenderSettings`,
-`render_view_soa`, `render`): project, bin into 16x16 tiles, composite.
-`render` matches the reference's `render_cuda`, including the 1/near
-world rescale that keeps geometry clear of the rasterizer's near plane.
+Port of `pixelsplat_tpu/ops/rasterizer/render.py`: project, bin into
+16x16 tiles, composite. `render` matches the reference's `render_cuda`,
+including the 1/near world rescale that keeps geometry clear of the
+rasterizer's near plane; `render_depth` renders camera-space depth in one
+of four modes as a single colour channel; `render_orthographic` emulates
+an orthographic camera with a narrow frustum pushed back along its axis.
+All of them composite through the same kernels.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Literal, Optional
 
 import torch
 
+from ...geometry.projection import inverse_se3
 from .binning import TileLists, bin_gaussians
 from .composite import composite_tiles
 from .projection import (
@@ -21,6 +25,8 @@ from .projection import (
     pack_gaussians_soa,
     project_gaussians_soa,
 )
+
+DepthRenderingMode = Literal["depth", "disparity", "relative_disparity", "log"]
 
 
 @dataclass(frozen=True)
@@ -158,3 +164,143 @@ def render(
     if return_overflow:
         return images, torch.stack(overflows)
     return images
+
+
+def depth_to_relative_disparity(
+    depth: torch.Tensor, near: torch.Tensor, far: torch.Tensor, eps: float = 1e-10
+) -> torch.Tensor:
+    """0 at near, 1 at far."""
+    disp_near = 1.0 / (near + eps)
+    disp_far = 1.0 / (far + eps)
+    disp = 1.0 / (depth + eps)
+    return 1.0 - (disp - disp_far) / (disp_near - disp_far + eps)
+
+
+def depth_colors(
+    extrinsics: torch.Tensor,  # (b, 4, 4)
+    near: torch.Tensor,  # (b,)
+    far: torch.Tensor,  # (b,)
+    gaussian_means: torch.Tensor,  # (b, g, 3)
+    mode: DepthRenderingMode = "depth",
+) -> torch.Tensor:
+    """Each Gaussian's camera-space depth in `mode`: the (b, g) colour that
+    `render_depth` composites."""
+    cam_z = torch.einsum(
+        "bij,bgj->bgi",
+        inverse_se3(extrinsics),
+        torch.cat([gaussian_means, torch.ones_like(gaussian_means[..., :1])], dim=-1),
+    )[..., 2]
+    if mode == "depth":
+        return cam_z
+    if mode == "disparity":
+        return 1.0 / cam_z
+    if mode == "relative_disparity":
+        return depth_to_relative_disparity(cam_z, near[:, None], far[:, None])
+    if mode == "log":
+        # The reference chains minimum(near) then maximum(far), which gives a
+        # constant; this is the clamp to [near, far] it means.
+        return torch.log(torch.clamp(cam_z, near[:, None], far[:, None]))
+    raise ValueError(f"unknown depth rendering mode {mode!r}")
+
+
+def render_depth(
+    extrinsics: torch.Tensor,  # (b, 4, 4)
+    intrinsics: torch.Tensor,  # (b, 3, 3)
+    near: torch.Tensor,  # (b,)
+    far: torch.Tensor,  # (b,)
+    image_shape: tuple[int, int],
+    gaussian_means: torch.Tensor,  # (b, g, 3)
+    gaussian_covariances: torch.Tensor,  # (b, g, 3, 3)
+    gaussian_opacities: torch.Tensor,  # (b, g)
+    scale_invariant: bool = True,
+    mode: DepthRenderingMode = "depth",
+    settings: RenderSettings = DEFAULT_SETTINGS,
+) -> torch.Tensor:
+    """Camera-space depth composited as a one-channel colour: (b, h, w)."""
+    fake_color = depth_colors(extrinsics, near, far, gaussian_means, mode)
+    result = render(
+        extrinsics,
+        intrinsics,
+        near,
+        far,
+        image_shape,
+        fake_color.new_zeros((fake_color.shape[0], 1)),
+        gaussian_means,
+        gaussian_covariances,
+        fake_color[..., None],  # (b, g, 1)
+        gaussian_opacities,
+        scale_invariant=scale_invariant,
+        use_sh=False,
+        settings=settings,
+    )
+    return result[:, 0]
+
+
+def orthographic_frustum(
+    extrinsics: torch.Tensor,  # (b, 4, 4)
+    width: torch.Tensor,  # (b,)
+    height: torch.Tensor,  # (b,)
+    near: torch.Tensor,  # (b,)
+    far: torch.Tensor,  # (b,)
+    fov_degrees: float = 0.1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(extrinsics, normalized intrinsics, near, far) of the narrow
+    perspective frustum that emulates an orthographic camera of the given
+    width and height: the camera moves back along its axis until the
+    frustum is that wide at the old near plane."""
+    tan_fov_x = torch.tan(0.5 * torch.deg2rad(torch.tensor(fov_degrees, dtype=extrinsics.dtype)))
+    tan_fov_x = tan_fov_x.to(extrinsics.device)
+    distance_to_near = (0.5 * width) / tan_fov_x
+    tan_fov_y = 0.5 * height / distance_to_near
+    near = near + distance_to_near
+    far = far + distance_to_near
+    b = extrinsics.shape[0]
+    move_back = torch.eye(4, dtype=extrinsics.dtype, device=extrinsics.device).repeat(b, 1, 1)
+    move_back[:, 2, 3] = -distance_to_near
+    extrinsics = torch.einsum("bij,bjk->bik", extrinsics, move_back)
+
+    intrinsics = torch.zeros((b, 3, 3), dtype=extrinsics.dtype, device=extrinsics.device)
+    intrinsics[:, 0, 0] = 1.0 / (2.0 * tan_fov_x)
+    intrinsics[:, 1, 1] = 1.0 / (2.0 * tan_fov_y)
+    intrinsics[:, 0, 2] = 0.5
+    intrinsics[:, 1, 2] = 0.5
+    intrinsics[:, 2, 2] = 1.0
+    return extrinsics, intrinsics, near, far
+
+
+def render_orthographic(
+    extrinsics: torch.Tensor,  # (b, 4, 4)
+    width: torch.Tensor,  # (b,)
+    height: torch.Tensor,  # (b,)
+    near: torch.Tensor,  # (b,)
+    far: torch.Tensor,  # (b,)
+    image_shape: tuple[int, int],
+    background_color: torch.Tensor,  # (b, c)
+    gaussian_means: torch.Tensor,  # (b, g, 3)
+    gaussian_covariances: torch.Tensor,  # (b, g, 3, 3)
+    gaussian_sh_coefficients: torch.Tensor,  # (b, g, 3, d_sh) or (b, g, c)
+    gaussian_opacities: torch.Tensor,  # (b, g)
+    fov_degrees: float = 0.1,
+    use_sh: bool = True,
+    settings: RenderSettings = DEFAULT_SETTINGS,
+) -> torch.Tensor:
+    """An orthographic view (b, c, h, w): `render` through
+    `orthographic_frustum`, without the 1/near rescale."""
+    extrinsics, intrinsics, near, far = orthographic_frustum(
+        extrinsics, width, height, near, far, fov_degrees
+    )
+    return render(
+        extrinsics,
+        intrinsics,
+        near,
+        far,
+        image_shape,
+        background_color,
+        gaussian_means,
+        gaussian_covariances,
+        gaussian_sh_coefficients,
+        gaussian_opacities,
+        scale_invariant=False,
+        use_sh=use_sh,
+        settings=settings,
+    )

@@ -61,21 +61,21 @@ IMPORTS_S = time.perf_counter() - PROCESS_T0
 FIXTURE = Path(__file__).resolve().parents[2] / "tests" / "fixtures"
 
 
-def write_scene_set(out: Path, copies: int, chunks: int) -> tuple[Path, Path]:
+def write_scene_set(out: Path, copies: int, chunks: int, stage: str = "test") -> tuple[Path, Path]:
     """`copies` copies of each fixture scene, spread in order over `chunks`
-    chunk files under `out/test/`, and their evaluation index; returns the
-    dataset root and the index's path."""
+    chunk files under `out/<stage>/`, and their evaluation index; returns
+    the dataset root and the index's path."""
     scenes = torch.load(FIXTURE / "re10k" / "test" / "000000.torch", map_location="cpu", weights_only=False)
     fixture_index = json.loads((FIXTURE / "evaluation_index_fixture.json").read_text())
     examples = [dict(scene, key=f"{scene['key']}_{c:04d}") for c in range(copies) for scene in scenes]
-    stage = out / "test"
-    stage.mkdir(parents=True, exist_ok=True)
+    directory = out / stage
+    directory.mkdir(parents=True, exist_ok=True)
     chunk_of = {}
     for i, part in enumerate(np.array_split(np.arange(len(examples)), chunks)):
         name = f"{i:06d}.torch"
-        torch.save([examples[j] for j in part], stage / name)
+        torch.save([examples[j] for j in part], directory / name)
         chunk_of.update({examples[j]["key"]: name for j in part})
-    (stage / "index.json").write_text(json.dumps(chunk_of))
+    (directory / "index.json").write_text(json.dumps(chunk_of))
     index = {e["key"]: fixture_index[e["key"].rsplit("_", 1)[0]] for e in examples}
     index_path = out / "evaluation_index.json"
     index_path.write_text(json.dumps(index))

@@ -17,6 +17,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Callable, Optional
 
 import torch
@@ -27,7 +28,7 @@ from ..model.encoder.encoder_epipolar import EncoderEpipolarCfg
 from ..ops.rasterizer.composite import assemble_image, pack_columns
 from ..ops.rasterizer.composite_kernel import composite_core
 from ..ops.rasterizer.projection import pack_gaussians_soa
-from ..ops.rasterizer.render import project_and_bin
+from ..ops.rasterizer.render import DepthRenderingMode, depth_colors, project_and_bin
 from ..training.model_wrapper import ModelWrapper, TrainState, batch_to
 from .eval_scene import init_random_weights, scene_batch
 
@@ -92,12 +93,17 @@ def make_train_scene(
     )
 
 
-def backward_inputs(scene: TrainScene, batch: dict, seed: int = 0) -> list[dict]:
+def backward_inputs(
+    scene: TrainScene, batch: dict, seed: int = 0, depth_mode: Optional[DepthRenderingMode] = None
+) -> list[dict]:
     """Per target view of `batch`'s first example, the backward compositing
     kernel's inputs as a training step at the current weights builds them:
     the table and tile lists under the decoder's static settings, the
     forward kernel's `n_proc` and `trans`, and the cotangents of `acc` and
-    `trans` that the MSE over all target views sends back."""
+    `trans` that the MSE over all target views sends back. With a
+    `depth_mode`, those of the view's depth render instead (one colour
+    channel, `render_depth`), with the cotangents that the wrapper's depth
+    loss on that view's depth map sends back."""
     wrapper = scene.wrapper
     settings = wrapper.decoder.cfg.render
     shimmed = wrapper.data_shim(batch_to(batch, wrapper.device))
@@ -108,17 +114,22 @@ def backward_inputs(scene: TrainScene, batch: dict, seed: int = 0) -> list[dict]
             shimmed["context"], scene.state.step, False,
             generator=torch.Generator(device=wrapper.device).manual_seed(seed),
         )
-    soa = pack_gaussians_soa(
-        gaussians.means[0], gaussians.covariances[0], gaussians.opacities[0], harmonics=gaussians.harmonics[0]
-    )
+    means, covs, opacities = gaussians.means[0], gaussians.covariances[0], gaussians.opacities[0]
+    soa = pack_gaussians_soa(means, covs, opacities, harmonics=gaussians.harmonics[0])
     background = torch.tensor(wrapper.decoder.cfg.background_color, device=wrapper.device)
+    if depth_mode is not None:
+        background = background.new_zeros(1)
+        depth_loss = next(loss for loss in wrapper.losses if loss.name == "depth")
     tiles_x = -(-w // settings.tile_size)
     out = []
     for v in range(target["image"].shape[1]):
+        e, n, f = target["extrinsics"][0, v], target["near"][0, v], target["far"][0, v]
         with torch.no_grad():
+            if depth_mode is not None:
+                colors = depth_colors(e[None], n[None], f[None], means[None], depth_mode)[0]
+                soa = pack_gaussians_soa(means, covs, opacities, colors_precomp=colors[:, None])
             projected, tiles = project_and_bin(
-                target["extrinsics"][0, v], target["intrinsics"][0, v], target["near"][0, v], soa,
-                image_shape=(h, w), settings=settings,
+                e, target["intrinsics"][0, v], n, soa, image_shape=(h, w), settings=settings
             )
             table = pack_columns(projected).contiguous()
             acc, trans, n_proc = composite_core(
@@ -127,7 +138,12 @@ def backward_inputs(scene: TrainScene, batch: dict, seed: int = 0) -> list[dict]
         acc.requires_grad_()
         trans.requires_grad_()
         image = assemble_image(acc, trans, background, (h, w), settings.tile_size)
-        ((image - target["image"][0, v]) ** 2).sum().div(target["image"][0].numel()).backward()
+        if depth_mode is None:
+            loss = ((image - target["image"][0, v]) ** 2).sum().div(target["image"][0].numel())
+        else:
+            view = {"target": {"image": target["image"][:1, v : v + 1]}}
+            loss = depth_loss(SimpleNamespace(depth=image[None]), view, None, scene.state.step)
+        loss.backward()
         out.append(dict(
             table=table, tiles=tiles, n_proc=n_proc, trans=trans.detach(), g_acc=acc.grad,
             g_trans=trans.grad, tiles_x=tiles_x, chunk=settings.chunk,

@@ -15,6 +15,7 @@ updates them in place; `TrainState.params` names the same tensors.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Optional, Sequence, Union
@@ -30,6 +31,7 @@ from ..model.types import Gaussians
 from ..ops.rasterizer.adaptive import choose_settings
 from ..ops.rasterizer.projection import GaussiansSoA
 from ..ops.rasterizer.render import RenderSettings
+from ..utils.benchmarker import Benchmarker
 from .optimizer import Optimizer, OptimizerCfg
 
 
@@ -208,7 +210,7 @@ class ModelWrapper:
     def train_step(self, state: TrainState, batch: dict, generator=None, u=None):
         return self.make_train_step()(state, batch, generator=generator, u=u)
 
-    def make_train_step(self, accumulate: int = 1) -> Callable:
+    def make_train_step(self, accumulate: int = 1, benchmarker: Optional[Benchmarker] = None) -> Callable:
         """`step_fn(state, batch, generator=None, u=None)` -> (state, parts).
 
         One optimizer update: gradients of `loss_fn`, global-norm clip, Adam
@@ -216,8 +218,12 @@ class ModelWrapper:
         `accumulate` > 1 splits the batch into that many micro-batches along
         its first axis and applies one update to the mean of their
         gradients; every loss term is a per-example mean, so that equals the
-        large batch's gradient, and clip and Adam see only the mean.
+        large batch's gradient, and clip and Adam see only the mean. With a
+        `benchmarker`, each micro-batch's forward and backward and the
+        optimizer's update are timed on the device clock
+        (`Benchmarker.time_device`: "forward", "backward", "optimizer").
         """
+        timed = benchmarker.time_device if benchmarker is not None else (lambda tag: nullcontext())
 
         def step_fn(state, batch, generator=None, u=None):
             params = list(state.params.values())
@@ -230,10 +236,12 @@ class ModelWrapper:
             parts = None
             for i in range(accumulate):
                 lo, hi = i * micro, (i + 1) * micro
-                total, mb_parts = self.loss_fn(
-                    _slice_batch(batch, lo, hi), state.step, generator, None if u is None else u[lo:hi]
-                )
-                total.backward()  # adds into .grad
+                with timed("forward"):
+                    total, mb_parts = self.loss_fn(
+                        _slice_batch(batch, lo, hi), state.step, generator, None if u is None else u[lo:hi]
+                    )
+                with timed("backward"):
+                    total.backward()  # adds into .grad
                 parts = mb_parts if parts is None else {k: parts[k] + v for k, v in mb_parts.items()}
             for p in params:
                 if p.grad is None:  # a weight the loss does not reach
@@ -242,7 +250,8 @@ class ModelWrapper:
                 inv = 1.0 / accumulate
                 torch._foreach_mul_([p.grad for p in params], inv)
                 parts = {k: v * inv for k, v in parts.items()}
-            state.optimizer.step(state.step)
+            with timed("optimizer"):
+                state.optimizer.step(state.step)
             state.step += 1
             return state, parts
 

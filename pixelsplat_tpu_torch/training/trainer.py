@@ -1,36 +1,63 @@
-"""The trainer: the evaluation protocol's loop.
+"""The trainer: the training loop and the evaluation protocol.
 
-Port of `pixelsplat_tpu/training/trainer.py`: `TrainerCfg`, the `Trainer`
-and `Trainer.test`. The test protocol encodes each scene with the
-PROBABILISTIC encoder, as the published metrics do, renders all of its
-target views in chunks of 32 at settings chosen from the scene's tile
-occupancy, scores PSNR, SSIM and LPIPS (LPIPS only with pretrained
-weights on disk), saves the renders as PNGs, and dumps the encoder and
-decoder times and the device's memory stats. `fit` and validation come in
-a later slice.
+Port of `pixelsplat_tpu/training/trainer.py`: `TrainerCfg` and the
+`Trainer` with `fit`, `validation_step` and `test`.
 
-The depth samples' uniforms come from a `torch.Generator` on the wrapper's
-device seeded `seed + 31`, one draw per scene; the JAX package splits
-`PRNGKey(seed + 31)` once per scene, so the two draw different numbers.
+`fit` takes optimizer steps (`ModelWrapper.make_train_step`, with
+`accumulate_grad_batches` micro-batches per update) over the data module's
+train stream, tells the step tracker every step (the bounded view sampler's
+curriculum reads it, in forked workers too), logs the step's losses every
+`log_every_n_steps`, validates on one batch every `val_check_interval`,
+saves a checkpoint every `every_n_train_steps` and at the end, and resumes
+from `resume_from` or `checkpointing.load`: parameters, Adam's moments and
+the step. Its Benchmarker times every wait for a train batch ("data"), each
+step ("step", ending in a device sync), each micro-batch's "forward" and
+"backward" and the "optimizer" (device clock), each validation pass and
+checkpoint save; `fit` writes the times to `output_dir/benchmark.json` and
+the device's memory stats to `output_dir/peak_memory.json`, as `test` does
+under its output path.
+
+Randomness. A step's depth-sampling uniforms come from one
+`torch.Generator` on the wrapper's device, seeded `seed + 7` anew at every
+`fit`, resumed or not, as the JAX package splits `PRNGKey(seed + 7)` once
+per step; validation encodes from a generator seeded with the step, as the
+JAX package's `PRNGKey(step)`; the test protocol's uniforms come from a
+generator seeded `seed + 31`, one draw per scene. The two packages draw
+different numbers from the same seeds. The train stream is the data
+module's: past its first pass, an inline stream goes on drawing from one
+generator, where the JAX package's inline stream builds its dataset anew,
+re-seeded, for every pass. The port's inline stream behaves as the JAX
+package's worker processes do, and the shipped config trains with 16
+workers.
+
+The test protocol encodes each scene with the PROBABILISTIC encoder, as
+the published metrics do, renders all of its target views in chunks of 32
+at settings chosen from the scene's tile occupancy, scores PSNR, SSIM and
+LPIPS (LPIPS only with pretrained weights on disk), saves the renders as
+PNGs, and dumps the encoder and decoder times and the device's memory
+stats.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 from PIL import Image
 
 from ..dataset.data_module import DataModule
-from ..evaluation.lpips import get_lpips
+from ..evaluation.lpips import get_lpips, load_lpips
 from ..evaluation.metrics import compute_psnr, compute_ssim
 from ..utils.benchmarker import Benchmarker
 from ..utils.local_logger import LocalLogger
 from ..utils.step_tracker import StepTracker
-from .model_wrapper import CheckpointingCfg, ModelWrapper, batch_to
+from ..visualization.annotation import add_label
+from ..visualization.layout import add_border, hcat, vcat
+from .checkpoint import load_checkpoint, save_checkpoint
+from .model_wrapper import CheckpointingCfg, ModelWrapper, TrainState, batch_to
 
 # Directory under `test.output_path` that holds this package's results.
 RESULTS_NAME = "pixelsplat_tpu"
@@ -58,6 +85,15 @@ def _strip_non_arrays(batch: dict) -> dict:
     return out
 
 
+def _refuse_extended_visualization(wrapper: ModelWrapper) -> None:
+    if wrapper.train_cfg.extended_visualization:
+        raise NotImplementedError(
+            "train.extended_visualization: the Gaussian projections, camera diagrams, encoder "
+            "figures and wobble / interpolation videos are not ported yet; they are ROADMAP.md "
+            "queue 1, item 7 (tooling). Set train.extended_visualization=false"
+        )
+
+
 class Trainer:
     def __init__(
         self,
@@ -79,6 +115,114 @@ class Trainer:
         self.logger = logger or LocalLogger(self.output_dir / "local")
         self.seed = seed
         self.benchmarker = Benchmarker(wrapper.device)
+
+    # ------------------------------------------------------------------
+    def fit(self, resume_from: Optional[Path] = None) -> TrainState:
+        """Train until `max_steps` (forever when negative); returns the
+        final state."""
+        wrapper = self.wrapper
+        _refuse_extended_visualization(wrapper)
+        bench = self.benchmarker
+        train_iter = iter(self.data_module.train_dataloader())
+        with bench.time("data"):
+            batch = next(train_iter)
+        state = wrapper.init_state()
+        if resume_from is None and self.checkpointing.load is not None:
+            resume_from = Path(self.checkpointing.load)
+        if resume_from is not None:
+            state = wrapper.load_state_dict(state, load_checkpoint(resume_from))
+            print(f"Resumed from {resume_from} at step {state.step}")
+
+        step_fn = wrapper.make_train_step(accumulate=self.cfg.accumulate_grad_batches, benchmarker=bench)
+        generator = torch.Generator(device=wrapper.device).manual_seed(self.seed + 7)
+        every = self.checkpointing.every_n_train_steps
+        step = state.step
+        val_iter: Optional[Iterator] = None
+        while self.cfg.max_steps < 0 or step < self.cfg.max_steps:
+            with bench.time("step"):
+                state, parts = step_fn(state, batch_to(_strip_non_arrays(batch), wrapper.device), generator=generator)
+                bench.sync()
+            step = state.step
+            if self.step_tracker is not None:
+                self.step_tracker.set_step(step)
+
+            if step % self.cfg.log_every_n_steps == 0:
+                host = {k: float(v) for k, v in parts.items()}
+                self.logger.log_metrics(host, step=step)
+                print(f"step {step}; " + "; ".join(f"{k}={v:.4f}" for k, v in host.items()))
+
+            if every > 0 and step % every == 0:
+                with bench.time("checkpoint"):
+                    path = save_checkpoint(self.output_dir / "checkpoints", step, wrapper.state_dict(state))
+                print(f"Saved checkpoint {path}")
+                self.logger.log_model(path, step=step)
+
+            if self.cfg.val_check_interval > 0 and step % self.cfg.val_check_interval == 0:
+                if val_iter is None:
+                    val_iter = iter(self.data_module.val_dataloader())
+                try:
+                    val_batch = next(val_iter)
+                except StopIteration:
+                    val_iter = None
+                else:
+                    with bench.time("validation"):
+                        self.validation_step(state, val_batch, step)
+
+            with bench.time("data"):
+                batch = next(train_iter)
+
+        if not (every > 0 and step % every == 0):
+            # The periodic save already wrote this step otherwise.
+            with bench.time("checkpoint"):
+                save_checkpoint(self.output_dir / "checkpoints", step, wrapper.state_dict(state))
+        bench.dump(self.output_dir / "benchmark.json")
+        bench.dump_memory(self.output_dir / "peak_memory.json")
+        return state
+
+    # ------------------------------------------------------------------
+    def validation_step(self, state: TrainState, batch: dict, step: int) -> dict:
+        """Probabilistic and deterministic renders of the batch's target
+        views: PSNR, SSIM (and LPIPS with pretrained weights) per variant,
+        and the comparison grid (context | target | probabilistic |
+        deterministic) through the logger."""
+        wrapper = self.wrapper
+        _refuse_extended_visualization(wrapper)
+        arrays = batch_to(_strip_non_arrays(batch), wrapper.device)
+        target = arrays["target"]
+        b, v, c, h, w = target["image"].shape
+        encode = wrapper.make_eval_encode()
+
+        colors = {}
+        with torch.no_grad():
+            for name, deterministic in (("probabilistic", False), ("deterministic", True)):
+                generator = torch.Generator(device=wrapper.device).manual_seed(step)
+                gaussians = encode(arrays, deterministic, state.step, generator=generator)
+                colors[name] = wrapper.decoder(
+                    gaussians, target["extrinsics"], target["intrinsics"], target["near"], target["far"],
+                    (h, w),
+                ).color
+
+            metrics = {}
+            flat_gt = target["image"].reshape(b * v, c, h, w)
+            lpips = load_lpips()  # pretrained weights only: never a metric from random ones
+            if lpips is not None:
+                lpips = lpips.eval().to(wrapper.device)
+            for name, color in colors.items():
+                flat = color.reshape(b * v, c, h, w)
+                metrics[f"val/psnr_{name}"] = float(compute_psnr(flat_gt, flat).mean())
+                metrics[f"val/ssim_{name}"] = float(compute_ssim(flat_gt, flat).mean())
+                if lpips is not None:
+                    metrics[f"val/lpips_{name}"] = float(lpips(flat_gt, flat).mean())
+        self.logger.log_metrics(metrics, step=step)
+
+        def row(images: torch.Tensor, label: str) -> np.ndarray:
+            return add_label(hcat(*images.detach().cpu().numpy()), label)
+
+        rows = [row(arrays["context"]["image"][0], "Context"), row(target["image"][0], "Target (GT)")]
+        rows += [row(color[0], f"Target ({name})") for name, color in colors.items()]
+        self.logger.log_image("comparison", add_border(vcat(*rows)), step=step)
+        print("validation;", "; ".join(f"{k}={x:.3f}" for k, x in metrics.items()))
+        return metrics
 
     # ------------------------------------------------------------------
     def test(self, chunk_size: int = 32) -> dict:

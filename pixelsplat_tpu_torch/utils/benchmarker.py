@@ -3,6 +3,9 @@
 Port of `pixelsplat_tpu/utils/benchmarker.py`. `sync` waits for the device
 the benchmarker was made for (`torch.cuda.synchronize`; nothing on the
 CPU), so a timed block that ends in it times the device's work.
+`time_device` times the work a block queues on the card with CUDA events,
+without a sync: the events are read when the times are (`dump`,
+`summarize`); on the CPU it is `time`.
 `dump_memory` writes `torch.cuda.memory_stats` as ints, with the two keys
 that `paper/generate_benchmark_table.py` reads, `peak_bytes_in_use` and
 `bytes_in_use`; on the CPU it writes `{}`.
@@ -25,6 +28,8 @@ class Benchmarker:
     def __init__(self, device: Union[str, torch.device] = "cpu"):
         self.device = torch.device(device)
         self.execution_times: dict[str, list[float]] = defaultdict(list)
+        # (tag, start, end) CUDA events of `time_device` blocks not read yet.
+        self._events: list = []
 
     @contextmanager
     def time(self, tag: str, num_calls: int = 1) -> Iterator[None]:
@@ -37,12 +42,37 @@ class Benchmarker:
             elapsed = perf_counter() - start_time
             self.execution_times[tag].extend([elapsed / num_calls] * num_calls)
 
+    @contextmanager
+    def time_device(self, tag: str) -> Iterator[None]:
+        """Record, under `tag`, the seconds between the device reaching the
+        block's start and its end (the host clock off the card)."""
+        if self.device.type != "cuda":
+            with self.time(tag):
+                yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._events.append((tag, start, end))
+
+    def _read_events(self) -> None:
+        if self._events:
+            self.sync()
+            for tag, start, end in self._events:
+                self.execution_times[tag].append(start.elapsed_time(end) / 1e3)
+            self._events = []
+
     def sync(self) -> None:
         """Wait for the device's queued work."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def dump(self, path: Path) -> None:
+        self._read_events()
         path = Path(path)
         path.parent.mkdir(exist_ok=True, parents=True)
         with path.open("w") as f:
@@ -63,7 +93,9 @@ class Benchmarker:
             json.dump(self.memory_stats(), f)
 
     def summarize(self) -> dict[str, float]:
+        self._read_events()
         return {tag: float(np.mean(times)) for tag, times in self.execution_times.items()}
 
     def clear_history(self) -> None:
         self.execution_times = defaultdict(list)
+        self._events = []

@@ -41,6 +41,7 @@ from pixelsplat_tpu_torch.dataset.data_module import DataModule as PtDataModule
 from pixelsplat_tpu_torch.interop import from_jax
 from pixelsplat_tpu_torch.model.encoder.encoder_epipolar import EncoderEpipolar as PtEncoder
 from pixelsplat_tpu_torch.scripts import profile_protocol
+from pixelsplat_tpu_torch.scripts.train_fixture import FIXTURE_OVERRIDES, write_train_root
 from pixelsplat_tpu_torch.training import trainer as pt_trainer
 from pixelsplat_tpu_torch.training.checkpoint import save_checkpoint
 from pixelsplat_tpu_torch.training.model_wrapper import ModelWrapper as PtWrapper
@@ -285,8 +286,16 @@ def test_make_eval_render_equals_encode_then_decode():
 def test_main_refuses_what_it_cannot_run(port_checkpoint, tmp_path, monkeypatch):
     path, _ = port_checkpoint
     monkeypatch.chdir(tmp_path)  # anything written to the default output_dir lands here
-    with pytest.raises(NotImplementedError, match="Trainer.fit"):
-        pt_main.main(["+experiment=re10k", "mode=train"], device="cpu")
+    # `mode=train` runs (`test_torch_fit.py` holds it against the JAX trainer):
+    # one step on the fixture made into a train split, from fresh weights.
+    root = write_train_root(tmp_path / "re10k")
+    state = pt_main.main(
+        ["+experiment=re10k", "mode=train", f"dataset.roots=[{root}]", *FIXTURE_OVERRIDES, f"dataset.image_shape=[{H},{W}]",
+         *SMALL, "data_loader.train.num_workers=0", "data_loader.train.batch_size=1", "trainer.accumulate_grad_batches=1",
+         "trainer.max_steps=1", "loss=[mse]"],
+        device="cpu",
+    )
+    assert state.step == 1 and (tmp_path / "outputs" / "checkpoints" / "step_1").is_file()
     with pytest.raises(ValueError, match="checkpointing.load"):
         pt_main.main(PROTOCOL, device="cpu")
     # An orbax checkpoint of the JAX package is a directory.

@@ -64,7 +64,7 @@ def test_loss_mse():
     ids=["plain", "bilateral", "bilateral_second", "second"],
 )
 def test_loss_depth(sigma_image, second):
-    """On a synthetic depth map: the decoder's depth rendering is not ported yet."""
+    """On a synthetic depth map (rendered ones: `test_torch_depth_render.py`)."""
     (out_j, batch_j), (out_p, batch_p) = prediction_and_batch(1)
     kw = dict(weight=0.25, sigma_image=sigma_image, use_second_derivative=second)
     want = jx_loss_depth.LossDepth(jx_loss_depth.LossDepthCfg(**kw))(out_j, batch_j, None, 0)

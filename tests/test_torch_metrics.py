@@ -128,6 +128,40 @@ def test_benchmarker_on_the_cpu(tmp_path):
     assert bench.summarize() == {}
 
 
+def test_benchmarker_device_clock(monkeypatch):
+    """`time_device` takes the host clock off the card; on a card it records
+    CUDA events and reads them, after one sync, only when the times are
+    read (the events are faked here: no card)."""
+    bench = Benchmarker("cpu")
+    with bench.time_device("forward"):
+        pass
+    assert len(bench.execution_times["forward"]) == 1
+
+    class Event:
+        clock_ms = 0.0
+
+        def __init__(self, enable_timing=False):
+            assert enable_timing
+
+        def record(self):
+            Event.clock_ms += 2.5
+            self.at = Event.clock_ms
+
+        def elapsed_time(self, end):
+            return end.at - self.at
+
+    synced = []
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: synced.append(device))
+    bench = Benchmarker("cuda:0")
+    for _ in range(2):
+        with bench.time_device("backward"):
+            pass
+    assert bench.execution_times == {} and synced == []  # no sync while timing
+    assert bench.summarize() == {"backward": pytest.approx(2.5e-3)}
+    assert len(synced) == 1 and bench.execution_times["backward"] == pytest.approx([2.5e-3, 2.5e-3])
+
+
 def test_benchmarker_files_have_the_jax_layout(tmp_path):
     """The same calls give the same JSON keys and entry counts as the JAX
     Benchmarker (the times themselves differ)."""

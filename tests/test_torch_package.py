@@ -114,8 +114,12 @@ def test_unported_options_raise():
         EncoderEpipolar(dataclasses.replace(encoder, compute_dtype="bfloat16"))
     with pytest.raises(NotImplementedError, match="predict_opacity"):
         EncoderEpipolar(dataclasses.replace(encoder, predict_opacity=True))
-    with pytest.raises(NotImplementedError, match="depth_mode"):
-        DecoderSplatting(decoder)(None, torch.eye(4)[None, None], None, None, None, (16, 16), depth_mode="depth")
+    # Depth renders take the public AoS Gaussians only, as in the JAX package.
+    from pixelsplat_tpu_torch.ops.rasterizer.projection import GaussiansSoA
+
+    soa = GaussiansSoA(*(torch.zeros(1, 0) for _ in GaussiansSoA._fields))
+    with pytest.raises(NotImplementedError, match="depth_mode rendering takes the public AoS Gaussians"):
+        DecoderSplatting(decoder)(soa, torch.eye(4)[None, None], None, None, None, (16, 16), depth_mode="depth")
 
 
 TRAINING_SLICE_SOURCES = [

@@ -115,7 +115,8 @@ def test_re10k_config_matches_jax_experiment():
     assert [dataclasses.asdict(c) for c in got.loss] == [dataclasses.asdict(c) for c in want.loss]
     assert got.gradient_clip_val == want.trainer.gradient_clip_val == 0.5
     assert got.accumulate_grad_batches == want.trainer.accumulate_grad_batches == 7
-    assert set(pt_config.EXPERIMENTS) == {"re10k", "re10k_ablation_no_epipolar_transformer"}
+    assert set(pt_config.EXPERIMENTS) == {"re10k", "re10k_depth_loss", "re10k_ablation_no_epipolar_transformer"}
+    assert pt_config.EXPERIMENTS["re10k_depth_loss"][0] is pt_config.re10k  # the same model
 
 
 def test_full_width_re10k_encoder_builds(monkeypatch):
