@@ -111,6 +111,39 @@ Phases, each reported on its own lines; any failure exits non-zero:
    and the step (host), then validation ms, checkpoint save ms and MiB and
    peak memory, beside the card line.
 
+8. experiments: the evaluation scene on `bench.py`'s cameras, 3 target
+   views, at 256x256 with seeded weights, of `acid` (393,216 Gaussians),
+   `re10k_ablation_no_depth_encoding` (393,216), `re10k_3_view` (three
+   context views at x = 0, 0.4, 0.8: 589,824),
+   `re10k_ablation_no_probabilistic_sampling` (gpp 1 with transmittance
+   opacities: 131,072) and the encoder's default config
+   (`config/model/encoder/epipolar.yaml`: the resnet50 InstanceNorm
+   backbone, 393,216). Checks the count v x h x w x gpp from the
+   configuration, finite images, no dropped pairs, K1 launched exactly once
+   per target view and held against its plain version on view 0; prints
+   encode and render ms. Then one training step at batch 1 (4 target
+   views) of `re10k_3_view` and of the no-probabilistic-sampling ablation:
+   finite losses, a finite gradient on every parameter (a non-zero one on
+   the view embeddings of three views), K1 and K2 once per target view, K2
+   against its plain version on view 0; its forward, backward and
+   optimizer ms.
+9. bf16: the `re10k` scene encoded with `compute_dtype=bfloat16` and in
+   f32 on the same weights and uniforms (TF32 off): bf16 against f32 mean
+   |d opacity| < 0.05 and mean |d mean| < 0.15 (the JAX package's
+   `tests/test_model.py` bounds), both rendered finite with no dropped
+   pairs, every parameter float32 and each refinement convolution's output
+   in its policy's dtype; encode ms of each in alternating rounds, and the
+   two 7x7 refinement convolutions' ms (`profile_scene.py`'s split).
+10. native: `main.main` as `python -m pixelsplat_tpu_torch.main
+   +experiment=re10k_3_view mode=test` runs it (the evaluation sampler
+   inserts the midpoint as the third context view; 589,824 Gaussians per
+   scene), on a copy of the fixture whose chunk has a `.psz` sibling
+   written by `scripts/transcode_chunks.py`, with the configured 4 workers.
+   Checks as phase 5, then prints the route the chunk took (or the
+   compiler's message where the native loader cannot build, and the CLI
+   read `.torch`); where `.psz` ran, its images within 1/255 of the
+   `.torch` route's; the data ms per scene on each route.
+
 Every kernel's launch count is set to 0 just before each path is driven
 and read just after it. The run ends with the card line, a JSON record of
 the five kernels and {"ok": true, "device": {...}}.
@@ -212,6 +245,16 @@ def phase(name: str, message: str) -> None:
     print(f"[{name}] {message}", flush=True)
 
 
+def launch_counts(kernels) -> dict:
+    """Each kernel wrapper's launches since its count was last set to 0."""
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def reset_launches(kernels) -> None:
+    for fn in kernels.values():
+        fn.launches = 0
+
+
 def colour_channels(table) -> int:
     """The colour channels a render uses: its table's colour columns (6 on)
     up to the last one that is not all zeros."""
@@ -307,8 +350,7 @@ def train_phase(torch, kernels, model):
     ts = make_train_scene(seed=SEED, model=model)
     state = ts.state
     before = {k: v.detach().clone() for k, v in state.params.items()}
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_launches(kernels)
     peaks, parts = {}, []
     micro_batches = 0
     for i, (label, at_step, n, batch_size, accumulate) in enumerate(TRAIN_PLANS[model]):
@@ -321,7 +363,7 @@ def train_phase(torch, kernels, model):
         peaks[label] = torch.cuda.max_memory_allocated() / 2**30
         micro_batches += n * accumulate
         del batch
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = launch_counts(kernels)
 
     for label, p in parts:
         values = {k: float(v) for k, v in p.items()}
@@ -533,11 +575,10 @@ def model_phases(torch, kernels, model, seed):
     scene.run(seed + 1)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_launches(kernels)
     gaussians, settings, color, overflow = scene.run(seed)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = launch_counts(kernels)
     n_gaussians = gaussians.mean_x.shape[1]
     phase(
         "scene",
@@ -714,8 +755,7 @@ def eval_protocol_phase(torch, kernels) -> dict:
 
         held_gib = torch.cuda.memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()
-        for fn in kernels.values():
-            fn.launches = 0
+        reset_launches(kernels)
         ModelWrapper.make_eval_encode, ModelWrapper.make_eval_decode = watched_encode, watched_decode
         t0 = time.perf_counter()
         try:
@@ -723,7 +763,7 @@ def eval_protocol_phase(torch, kernels) -> dict:
         finally:
             ModelWrapper.make_eval_encode, ModelWrapper.make_eval_decode = make_encode, make_decode
         run_s = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in kernels.items()}
+        launches = launch_counts(kernels)
 
         phase("eval_protocol", f"main {' '.join(EVAL_PROTOCOL_ARGV)} ... in {run_s:.1f} s: {summary}")
         if summary["num_scenes"] != len(index) or summary["overflow_pairs"] != 0:
@@ -983,14 +1023,13 @@ def train_protocol_phase(torch, kernels) -> dict:
     result = {"launches": {}}
 
     def run(argv, reference=None):
-        for fn in kernels.values():
-            fn.launches = 0
+        reset_launches(kernels)
         torch.cuda.reset_peak_memory_stats()
         with Captured(torch, reference) as captured:
             t0 = time.perf_counter()
             state = cli.main(argv)
             seconds = time.perf_counter() - t0
-        return state, captured, {name: fn.launches for name, fn in kernels.items()}, seconds
+        return state, captured, launch_counts(kernels), seconds
 
     def expect_launches(label, launches, fwd, bwd):
         if launches["composite_fwd"] != fwd or launches["composite_bwd"] != bwd or any(
@@ -1184,14 +1223,13 @@ def tools_phase(torch, kernels, first_view):
 
     table, tiles = first_view["table"], first_view["tiles"]
     tiles_x, chunk = first_view["tiles_x"], first_view["chunk"]
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_launches(kernels)
     d_rows, ids = bench_segment_sum.bench_inputs("cuda")
     calls = bench_segment_sum.variants(d_rows, ids, bench_segment_sum.ROWS)
     seg_errors = bench_segment_sum.check_variants(calls)
     full_err = bench_kernel_ablation.check_variants(table, tiles, tiles_x, chunk)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = launch_counts(kernels)
     phase("tools", f"segment sums against index_add, max err / max entry: "
           f"{({k: float(f'{v:.3g}') for k, v in seg_errors.items()})}; stage ablation: full against the plain "
           f"compositor without early exit {full_err:.3g}, {len(bench_kernel_ablation.VARIANTS)} variants finite "
@@ -1242,6 +1280,361 @@ def tools_phase(torch, kernels, first_view):
     )
 
 
+# The five configurations of `[experiments]`: the four shipped experiments
+# beyond re10k, the ablation and the depth loss, and the encoder's default
+# config (`config/model/encoder/epipolar.yaml`, the resnet50 InstanceNorm
+# backbone), each as `scripts/eval_scene.py` names it.
+EXPERIMENT_SCENES = (
+    "acid", "re10k_ablation_no_depth_encoding", "re10k_3_view", "re10k_ablation_no_probabilistic_sampling", "default",
+)
+TRAINED_EXPERIMENTS = ("re10k_3_view", "re10k_ablation_no_probabilistic_sampling")
+
+
+def experiments_phase(torch, kernels, seed) -> dict:
+    """Each configuration's evaluation scene on `bench.py`'s cameras (three
+    context views for `re10k_3_view`), 3 target views, through the
+    `ModelWrapper` entry points, K1 against its plain version on view 0;
+    then one training step at batch 1 of each trained experiment (4 target
+    views, its preset's settings), K2 against its plain version on view 0."""
+    from pixelsplat_tpu_torch.config import NUM_TARGET_VIEWS
+    from pixelsplat_tpu_torch.ops.rasterizer import composite_kernel
+    from pixelsplat_tpu_torch.scripts.eval_scene import (
+        TARGET_VIEWS, card_line, cuda_ms, make_eval_scene, num_gaussians, view_inputs,
+    )
+    from pixelsplat_tpu_torch.scripts.train_scene import backward_inputs, make_train_scene, timed_step
+
+    card = card_line()
+    result = dict(launches={}, scenes={}, steps={}, fwd_err=0.0, bwd_err=0.0, bwd_abs_err=0.0, bwd_tiles=0)
+    for model in EXPERIMENT_SCENES:
+        scene = make_eval_scene(seed=seed, model=model)
+        cfg, (h, w) = scene.wrapper.encoder_cfg, scene.image_shape
+        want = num_gaussians(cfg, scene.image_shape)
+        scene.run(seed + 1)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(kernels)
+        gaussians, settings, color, overflow = scene.run(seed)
+        torch.cuda.synchronize()
+        launches = launch_counts(kernels)
+        result["launches"][f"experiments {model} evaluation"] = launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = gaussians.mean_x.shape[1]
+        backbone = cfg.backbone.model if cfg.backbone.name == "resnet" else f"{cfg.backbone.model} + dino_resnet50"
+        phase("experiments", f"{model}: backbone {backbone}, {cfg.num_context_views} context views, gpp "
+              f"{cfg.gaussians_per_pixel}, transmittance {cfg.use_transmittance}, depth-encoding octaves "
+              f"{cfg.epipolar_transformer.num_octaves}: {n} Gaussians (v x h x w x gpp = {want}), settings capacity="
+              f"{settings.capacity} pair_budget={settings.pair_budget}, images {tuple(color.shape)}, overflow "
+              f"{int(overflow)}, launches {launches}, image mean {float(color.mean()):.6f}")
+        if n != want:
+            fail(f"experiments {model}: {n} Gaussians, expected {want}")
+        if tuple(color.shape) != (1, TARGET_VIEWS, 3, h, w) or not bool(torch.isfinite(color).all()):
+            fail(f"experiments {model}: images are not finite of shape (1, {TARGET_VIEWS}, 3, {h}, {w})")
+        if int(overflow) != 0:
+            fail(f"experiments {model}: {int(overflow)} (gaussian, tile) pairs dropped")
+        if launches["composite_fwd"] != TARGET_VIEWS or any(n for k, n in launches.items() if k != "composite_fwd"):
+            fail(f"experiments {model}: launches {launches}, expected composite_fwd once per target view")
+        _, tiles, table = view_inputs(scene, gaussians, settings)[0]
+        chunk, tiles_x = settings.chunk, w // settings.tile_size
+        err, n_k = check_kernel_against_plain(composite_kernel, f"{model} 0", tiles, table, chunk, tiles_x)
+        if err > KERNEL_ATOL:
+            fail(f"experiments {model}: composite_fwd disagrees with its plain version: {err:.3g} > {KERNEL_ATOL}")
+        result["fwd_err"] = max(result["fwd_err"], err)
+        args = (table, tiles.flat, tiles.block_start, tiles.counts, tiles_x, chunk)
+        numbers = dict(
+            gaussians=n,
+            encode_ms=cuda_ms(lambda: scene.encode(scene.batch, False, 0), iters=3, warmup=1),
+            render_ms=cuda_ms(lambda: scene.render(gaussians, settings), iters=3, warmup=1) / TARGET_VIEWS,
+            k1_ms=cuda_ms(lambda: composite_kernel.composite_core(*args), iters=20),
+            k1_plain_ms=cuda_ms(lambda: composite_kernel.composite_core_plain(*args), iters=2, warmup=1),
+            k1_bound=composite_bound_ms(tiles, table, n_k, chunk), peak_gib=peak,
+        )
+        result["scenes"][model] = numbers
+        phase("timing", f"experiments {model} | {card} | encode {numbers['encode_ms']:.3f} ms | render "
+              f"{numbers['render_ms']:.3f} ms/view | composite_fwd view 0 {numbers['k1_ms']:.4f} ms/launch, plain "
+              f"{numbers['k1_plain_ms']:.3f} ms, bound {numbers['k1_bound'][0]:.4f} ms ({numbers['k1_bound'][1]}), "
+              f"list slots {int(tiles.counts.sum())} | peak memory {peak:.2f} GiB")
+        del scene, gaussians, color, tiles, table
+        torch.cuda.empty_cache()
+
+    for model in TRAINED_EXPERIMENTS:
+        ts = make_train_scene(seed=seed, model=model)
+        batch = ts.batch(1)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(kernels)
+        parts = ts.steps(1, batch)[0]
+        torch.cuda.synchronize()
+        launches = launch_counts(kernels)
+        result["launches"][f"experiments {model} training"] = launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        values = {k: float(v) for k, v in parts.items()}
+        cfg = ts.wrapper.encoder_cfg
+        phase("experiments", f"{model} train step (batch 1, {cfg.num_context_views} context + {NUM_TARGET_VIEWS} "
+              f"target views, remat_encoder {ts.wrapper.train_cfg.remat_encoder}): "
+              + ", ".join(f"{k} {x:.6g}" for k, x in values.items()) + f"; launches {launches}")
+        if not all(math.isfinite(x) for x in values.values()) or values["train/overflow_pairs"] != 0:
+            fail(f"experiments {model}: a loss part is not finite, or pairs were dropped: {values}")
+        params = ts.state.params
+        missing = [k for k, p in params.items() if p.grad is None]
+        if missing:
+            fail(f"experiments {model}: {len(missing)} parameters have no gradient, e.g. {missing[:3]}")
+        if not all(bool(torch.isfinite(p.grad).all()) for p in params.values()):
+            fail(f"experiments {model}: a gradient is not finite")
+        embeddings = params.get("epipolar_transformer.view_embeddings.weight")
+        if (embeddings is not None) != (cfg.num_context_views > 2) or (
+            embeddings is not None and not bool((embeddings.grad != 0).any())
+        ):
+            fail(f"experiments {model}: view embeddings missing, unexpected or without a gradient")
+        expected = NUM_TARGET_VIEWS
+        if launches["composite_fwd"] != expected or launches["composite_bwd"] != expected or any(
+            n for k, n in launches.items() if k not in ("composite_fwd", "composite_bwd")
+        ):
+            fail(f"experiments {model} training: launches {launches}, expected composite_fwd and composite_bwd "
+                 f"{expected} each")
+        inp = backward_inputs(ts, batch, seed=seed)[0]
+        rel, abs_err, tiles_explained = check_bwd_kernel_against_plain(f"{model} 0", inp)
+        result["bwd_err"] = max(result["bwd_err"], rel)
+        result["bwd_abs_err"] = max(result["bwd_abs_err"], abs_err)
+        result["bwd_tiles"] += tiles_explained
+        timed_step(ts, batch)  # warm-up of the timed path
+        split = timed_step(ts, batch)
+        numbers = dict(
+            peak_gib=peak, **split,
+            k2_ms=cuda_ms(lambda: composite_kernel.composite_bwd(*bwd_args(inp)), iters=10),
+            k2_plain_ms=cuda_ms(lambda: composite_kernel.composite_bwd_plain(*bwd_args(inp)), iters=2, warmup=1),
+            k2_bound=composite_bwd_bound_ms(inp),
+        )
+        result["steps"][model] = numbers
+        phase("timing", f"experiments {model} train step | {card} | forward {split['forward_ms']:.3f} ms, backward "
+              f"{split['backward_ms']:.3f} ms, optimizer {split['optimizer_ms']:.3f} ms | composite_bwd view 0 "
+              f"{numbers['k2_ms']:.4f} ms/call, plain {numbers['k2_plain_ms']:.3f} ms, bound "
+              f"{numbers['k2_bound'][0]:.4f} ms ({numbers['k2_bound'][1]}) | peak memory {peak:.2f} GiB")
+        del ts, batch, inp
+        torch.cuda.empty_cache()
+    return result
+
+
+# `[bf16]`: the JAX package's own bounds on bf16 against f32 Gaussians
+# (tests/test_model.py:240-244), mean over every entry.
+BF16_OPACITY_BOUND = 0.05
+BF16_MEAN_BOUND = 0.15
+
+
+def bf16_phase(torch, kernels, seed) -> dict:
+    """The `re10k` scene encoded with `compute_dtype=bfloat16` and in f32, TF32
+    off, on the same weights and uniforms: Gaussians within the JAX
+    package's bounds, both rendered finite, every parameter f32 and the
+    refinement convolutions' outputs in the dtype each policy asks for;
+    encode and refinement-convolution ms of each (CUDA events, alternating
+    rounds)."""
+    from pixelsplat_tpu_torch.config import re10k
+    from pixelsplat_tpu_torch.scripts.eval_scene import TARGET_VIEWS, card_line, cuda_ms, make_eval_scene
+    from pixelsplat_tpu_torch.scripts.profile_scene import epipolar_transformer_stages
+
+    card = card_line()
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    policies = {"float32": None, "bfloat16": "bfloat16"}
+    scenes = {
+        name: make_eval_scene(seed=seed, encoder_cfg=dataclasses.replace(re10k()[0], compute_dtype=policy))
+        for name, policy in policies.items()
+    }
+    encoders = {name: sc.wrapper.encoder for name, sc in scenes.items()}
+    sd32, sd16 = (encoders[n].state_dict() for n in policies)
+    if sd32.keys() != sd16.keys() or not all(torch.equal(sd32[k], sd16[k]) for k in sd32):
+        fail("bf16: the two policies' encoders do not hold the same weights")
+    wrong = [f"{n}:{k}" for n, e in encoders.items() for k, p in e.named_parameters() if p.dtype != torch.float32]
+    if wrong:
+        fail(f"bf16: parameters not in float32: {wrong[:3]}")
+    h, w = scenes["float32"].image_shape
+    u = torch.rand((1, 2, h * w, 1, 3), generator=torch.Generator(device="cuda").manual_seed(seed + 5), device="cuda")
+
+    seen = {}
+    handles = []
+    for name, encoder in encoders.items():
+        refinement = encoder.epipolar_transformer.upscale_refinement
+        for i in (0, 2):
+            def hook(_m, _i, out, key=(name, f"refine{i // 2 + 1}")):
+                seen[key] = out.dtype
+            handles.append(refinement[i].register_forward_hook(hook))
+    aos, color = {}, {}
+    reset_launches(kernels)
+    try:
+        for name, sc in scenes.items():
+            aos[name] = sc.wrapper.make_eval_encode(pack_soa=False)(sc.batch, False, 0, u=u)
+            soa = sc.encode(sc.batch, False, 0, u=u)
+            settings = sc.choose(soa)
+            color[name], overflow = sc.render(soa, settings)
+            if int(overflow) or not bool(torch.isfinite(color[name]).all()):
+                fail(f"bf16: the {name} render dropped {int(overflow)} pairs or is not finite")
+    finally:
+        for handle in handles:
+            handle.remove()
+    torch.cuda.synchronize()
+    launches = launch_counts(kernels)
+    want_dtypes = {(n, c): getattr(torch, n) for n in policies for c in ("refine1", "refine2")}
+    if seen != want_dtypes:
+        fail(f"bf16: refinement outputs {seen}, expected {want_dtypes}")
+    if launches["composite_fwd"] != 2 * TARGET_VIEWS or any(n for k, n in launches.items() if k != "composite_fwd"):
+        fail(f"bf16: launches {launches}, expected composite_fwd once per target view per policy")
+    g32, g16 = aos["float32"], aos["bfloat16"]
+    d_opacity = float((g16.opacities - g32.opacities).abs().mean())
+    d_mean = float((g16.means - g32.means).abs().mean())
+    d_image = float((color["bfloat16"] - color["float32"]).abs().mean())
+    phase("bf16", f"re10k, {g32.means.shape[1]} Gaussians, same weights and uniforms: bf16 against f32 mean "
+          f"|d opacity| {d_opacity:.4g} (bound {BF16_OPACITY_BOUND}), mean |d mean| {d_mean:.4g} (bound "
+          f"{BF16_MEAN_BOUND}), images mean |d| {d_image:.4g}; refinement outputs "
+          f"{({f'{n} {c}': str(d).replace('torch.', '') for (n, c), d in seen.items()})}; every parameter float32; "
+          f"launches {launches}; TF32 off; allow_bf16_reduced_precision_reduction {reduced}")
+    if not (d_opacity < BF16_OPACITY_BOUND and d_mean < BF16_MEAN_BOUND):
+        fail(f"bf16: Gaussians off the f32 ones by {d_opacity:.4g} (opacity), {d_mean:.4g} (mean)")
+
+    encode_ms = {n: [] for n in policies}
+    for _ in range(2):  # alternating rounds
+        for name, sc in scenes.items():
+            encode_ms[name].append(cuda_ms(lambda: sc.encode(sc.batch, False, 0, u=u), iters=5))
+    stages = {name: epipolar_transformer_stages(sc) for name, sc in scenes.items()}
+    numbers = {
+        name: dict(encode_ms=sum(encode_ms[name]) / len(encode_ms[name]),
+                   refinement_ms=stages[name]["refinement (two 7x7 convs)"],
+                   refinement_channels_last_ms=stages[name]["refinement, channels-last input"],
+                   epipolar_transformer_ms=stages[name]["all"])
+        for name in policies
+    }
+    phase("timing", f"bf16 | {card} | encode ms f32 {numbers['float32']['encode_ms']:.3f}, bf16 "
+          f"{numbers['bfloat16']['encode_ms']:.3f} (rounds f32 {[round(x, 3) for x in encode_ms['float32']]}, bf16 "
+          f"{[round(x, 3) for x in encode_ms['bfloat16']]}) | refinement convs (two 7x7) ms f32 "
+          f"{numbers['float32']['refinement_ms']:.3f}, bf16 {numbers['bfloat16']['refinement_ms']:.3f} (on a "
+          f"channels-last input: f32 {numbers['float32']['refinement_channels_last_ms']:.3f}, bf16 "
+          f"{numbers['bfloat16']['refinement_channels_last_ms']:.3f}) | epipolar "
+          f"transformer ms f32 {numbers['float32']['epipolar_transformer_ms']:.3f}, bf16 "
+          f"{numbers['bfloat16']['epipolar_transformer_ms']:.3f} | allow_bf16_reduced_precision_reduction {reduced}")
+    del scenes, encoders, aos, color
+    torch.cuda.empty_cache()
+    return dict(launches=launches, numbers=numbers, d_opacity=d_opacity, d_mean=d_mean)
+
+
+# `[native]`: the CLI's evaluation protocol with `+experiment=re10k_3_view`
+# (the evaluation sampler inserts the midpoint as the third context view)
+# on a copy of the fixture whose chunk has a `.psz` sibling.
+NATIVE_ARGV = [
+    "+experiment=re10k_3_view",
+    "mode=test",
+    "dataset/view_sampler=evaluation",
+    f"dataset.view_sampler.index_path={FIXTURE / 'evaluation_index_fixture.json'}",
+]
+NATIVE_IMAGE_ATOL = 1 / 255  # tests/test_native_loader.py:69-72
+
+
+def native_phase(torch, kernels) -> dict:
+    """`main.main` as `python -m pixelsplat_tpu_torch.main +experiment=re10k_3_view
+    mode=test` runs it, on a copy of the fixture with `test/000000.psz`
+    written by `scripts/transcode_chunks.py`; the configured 4 workers load
+    the native loader themselves (this process has not loaded it before the
+    fork). Then the route each chunk takes, the `.psz` route's images
+    against the `.torch` route's, and the data wait per scene on each."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from pixelsplat_tpu_torch import main as cli
+    from pixelsplat_tpu_torch import native
+    from pixelsplat_tpu_torch.config import load_config
+    from pixelsplat_tpu_torch.dataset.data_module import DataModule
+    from pixelsplat_tpu_torch.dataset.dataset_re10k import chunk_route
+    from pixelsplat_tpu_torch.scripts.eval_scene import card_line
+    from pixelsplat_tpu_torch.scripts.transcode_chunks import transcode
+    from pixelsplat_tpu_torch.scripts.write_checkpoint import write_checkpoint
+    from pixelsplat_tpu_torch.training.model_wrapper import ModelWrapper
+    from pixelsplat_tpu_torch.training.trainer import RESULTS_NAME
+
+    if native._lib is not None:
+        fail("native: the loader was loaded in this process before the workers' fork")
+    index = json.loads((FIXTURE / "evaluation_index_fixture.json").read_text())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "re10k"
+        shutil.copytree(FIXTURE / "re10k", root)
+        chunk = root / "test" / "000000.torch"
+        transcode(chunk, chunk.with_suffix(".psz"))
+        argv = NATIVE_ARGV + [f"dataset.roots=[{root}]", f"test.output_path={tmp / 'test'}",
+                              f"output_dir={tmp / 'outputs'}"]
+        cfg = load_config(argv + ["checkpointing.load=unused"])
+        h, w = cfg.dataset.image_shape
+        checkpoint = write_checkpoint(tmp / "checkpoints", "re10k_3_view", SEED)
+
+        encodes = []
+        make_encode = ModelWrapper.make_eval_encode
+
+        def watched_encode(self, pack_soa=False):
+            encode = make_encode(self, pack_soa=pack_soa)
+
+            def encode_fn(batch, *args, **kwargs):
+                g = encode(batch, *args, **kwargs)
+                encodes.append((batch["context"]["image"].shape[1], g.mean_x.shape[1]))
+                return g
+
+            return encode_fn
+
+        reset_launches(kernels)
+        ModelWrapper.make_eval_encode = watched_encode
+        t0 = time.perf_counter()
+        try:
+            summary = cli.main(argv + [f"checkpointing.load={checkpoint}"])
+        finally:
+            ModelWrapper.make_eval_encode = make_encode
+        run_s = time.perf_counter() - t0
+        launches = launch_counts(kernels)
+        phase("native", f"main {' '.join(NATIVE_ARGV)} ... on the fixture with a .psz sibling, in {run_s:.1f} s: "
+              f"{summary}; (context views, Gaussians) per scene {encodes}; launches {launches}")
+        if summary["num_scenes"] != len(index) or summary["overflow_pairs"] != 0:
+            fail(f"native: {summary['num_scenes']} scenes, {summary['overflow_pairs']} dropped pairs")
+        if not (math.isfinite(summary["psnr"]) and math.isfinite(summary["ssim"])):
+            fail(f"native: PSNR {summary['psnr']}, SSIM {summary['ssim']}")
+        if encodes != [(3, 3 * h * w * 3)] * len(index):
+            fail(f"native: (context views, Gaussians) per scene {encodes}, expected 3 and {3 * h * w * 3}")
+        if launches["composite_fwd"] != 3 * len(index) or any(n for k, n in launches.items() if k != "composite_fwd"):
+            fail(f"native: launches {launches}, expected composite_fwd once per target view")
+        pngs = sorted((tmp / "test" / RESULTS_NAME).rglob("*.png"))
+        if len(pngs) != 3 * len(index):
+            fail(f"native: {len(pngs)} PNGs, expected {3 * len(index)}")
+
+        # The route, decided in this process as the workers decided it.
+        route = chunk_route(chunk)
+        available = native.native_available()
+        phase("native", f"test/000000.torch read through {'its .psz sibling (native loader)' if route == 'psz' else '.torch'};"
+              f" native loader {'built at ' + str(native.library_path().relative_to(ROOT)) if available else 'unavailable'}")
+        if not available:
+            phase("native", f"the loader does not build on this machine, so the CLI read .torch: {native.build_error()}")
+        if (route == "psz") != available:
+            fail(f"native: route {route} with the loader {'available' if available else 'unavailable'}")
+
+        def loader(roots, workers):
+            c = load_config(argv + [f"dataset.roots=[{roots}]", f"data_loader.test.num_workers={workers}",
+                                    "checkpointing.load=unused"])
+            return DataModule(c.dataset, c.data_loader).test_dataloader()
+
+        routes = {"psz": root, "torch": FIXTURE / "re10k"} if route == "psz" else {"torch": root}
+        if route == "psz":
+            for got, want in zip(loader(root, 0), loader(FIXTURE / "re10k", 0)):
+                for side in ("context", "target"):
+                    err = float(np.abs(got[side]["image"] - want[side]["image"]).max())
+                    same = all(np.array_equal(got[side][k], want[side][k]) for k in ("extrinsics", "intrinsics", "index"))
+                    phase("native", f"{got['scene'][0]} {side}: .psz images against .torch max |d| {err * 255:.3f}/255, "
+                          f"cameras and indices {'equal' if same else 'DIFFER'}")
+                    if err > NATIVE_IMAGE_ATOL + 1e-7 or not same:
+                        fail(f"native: the .psz route's {side} differs from the .torch route's by {err:.4g}")
+        data_ms = {}
+        for name, roots in routes.items():
+            for workers in (cfg.data_loader.test.num_workers, 0):
+                t0 = time.perf_counter()
+                scenes = sum(1 for _ in loader(roots, workers))
+                data_ms[(name, workers)] = (time.perf_counter() - t0) * 1e3 / scenes
+        phase("timing", f"native | {card_line()} | data ms per scene (3 context + 3 target views): " + ", ".join(
+            f"{name} route {ms:.1f} with {workers} workers" if workers else f"{name} route {ms:.1f} inline"
+            for (name, workers), ms in data_ms.items()) + f" | main {run_s:.1f} s")
+    return dict(launches=launches, route=route, data_ms={f"{n} {wk}": v for (n, wk), v in data_ms.items()})
+
+
 def main() -> None:
     if not (ROOT / "pixelsplat_tpu_torch").is_dir():
         fail("pixelsplat_tpu_torch/ not found beside chip_smoke.py: run from a checkout")
@@ -1286,10 +1679,9 @@ def main() -> None:
     phase("build", f"{len(built)} kernel(s) in {build_s:.2f} s")
 
     # 3. smoke: the tools' first entry point
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_launches(kernels)
     smoke = kernel_smoke.run_smoke()
-    smoke_launches = {name: fn.launches for name, fn in kernels.items()}
+    smoke_launches = launch_counts(kernels)
     if smoke["mean"] != 2.0 or smoke["scale_max_err"] != 0.0:
         fail(f"smoke_scale: mean {smoke['mean']}, max error {smoke['scale_max_err']} against x * 2")
     if not smoke["composite_max_err"] <= SMOKE_COMPOSITE_ATOL:
@@ -1309,9 +1701,21 @@ def main() -> None:
     # 7. training through the CLI's entry point, resumed, and with the depth loss
     training = train_protocol_phase(torch, kernels)
 
+    # 8. the other shipped experiments and the encoder's default config
+    experiments = experiments_phase(torch, kernels, SEED)
+
+    # 9. the bf16 compute policy against f32
+    bf16 = bf16_phase(torch, kernels, SEED)
+
+    # 10. the .psz route through the CLI, three context views
+    native = native_phase(torch, kernels)
+
     by_path = {"tools": {name: smoke_launches[name] + tools["launches"][name] for name in kernels}}
     by_path["eval_protocol"] = protocol["launches"]
     by_path.update(training["launches"])
+    by_path.update(experiments["launches"])
+    by_path["bf16"] = bf16["launches"]
+    by_path["native re10k_3_view eval_protocol"] = native["launches"]
     for model, r in results.items():
         for path, counts in r["launches"].items():
             by_path[f"{model} {path}"] = counts
@@ -1336,23 +1740,29 @@ def main() -> None:
         "kernels": [
             entry(
                 "composite_fwd", "composite_fwd.cu", "pixelsplat_tpu/ops/rasterizer/pallas_composite.py:281",
-                max_abs_err=max(r["fwd_err"] for r in results.values()), ms=main_model["fwd"][0],
+                max_abs_err=max([r["fwd_err"] for r in results.values()] + [experiments["fwd_err"]]),
+                ms=main_model["fwd"][0],
                 plain_ms=main_model["fwd"][1], bound_ms=main_model["fwd"][2], bound_by=main_model["fwd"][3],
                 longest_tile_ms=main_model["fwd"][4],
                 library_ms=None, ms_by_model={m: r["fwd"][0] for m, r in results.items()},
+                experiments_view0={m: dict(ms=x["k1_ms"], plain_ms=x["k1_plain_ms"], bound_ms=x["k1_bound"][0],
+                                           bound_by=x["k1_bound"][1]) for m, x in experiments["scenes"].items()},
                 **depth_numbers(training["depth_fwd"]),
             ),
             entry(
                 "composite_bwd", "composite_bwd.cu", "pixelsplat_tpu/ops/rasterizer/pallas_backward.py:234",
-                max_abs_err=max(r["bwd_abs_err"] for r in results.values()),
+                max_abs_err=max([r["bwd_abs_err"] for r in results.values()] + [experiments["bwd_abs_err"]]),
                 # Relative to each d_table column's largest |gradient|, the check's measure; both
                 # errors are over all rows, those of explained threshold pairs included.
-                max_rel_err=max(r["bwd_err"] for r in results.values()),
-                threshold_tiles=sum(r["bwd_tiles"] for r in results.values()), ms=main_model["bwd"][0],
+                max_rel_err=max([r["bwd_err"] for r in results.values()] + [experiments["bwd_err"]]),
+                threshold_tiles=sum(r["bwd_tiles"] for r in results.values()) + experiments["bwd_tiles"],
+                ms=main_model["bwd"][0],
                 plain_ms=main_model["bwd"][1], bound_ms=main_model["bwd"][2], bound_by=main_model["bwd"][3],
                 longest_tile_ms=main_model["bwd"][4],
                 library_ms=None, ms_by_model={m: r["bwd"][0] for m, r in results.items()},
                 **depth_numbers(training["depth_bwd"]), depth_max_rel_err=training["depth_bwd"][5],
+                experiments_view0={m: dict(ms=x["k2_ms"], plain_ms=x["k2_plain_ms"], bound_ms=x["k2_bound"][0],
+                                           bound_by=x["k2_bound"][1]) for m, x in experiments["steps"].items()},
             ),
             entry(
                 "copy_rows", "copy_rows.cu", "tools/bench_segment_sum.py:112",

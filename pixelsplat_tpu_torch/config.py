@@ -11,8 +11,9 @@ overrides (`a.b.c=value`, `+experiment=re10k`, group selections such as
 `dataset/view_sampler=evaluation`); the composed dict becomes a `RootCfg`
 of the port's dataclasses (unions of configs told apart by their `name`).
 
-The presets build the model and training configuration of three
-experiments without the YAML files, and equal what `load_config` composes for them. `re10k`
+The presets build the model and training configuration of the seven
+shipped experiments without the YAML files, and equal what `load_config`
+composes for them. `re10k`
 (`config/experiment/re10k.yaml`) is the production model: the DINO
 ViT-B/8 + dino_resnet50 backbone, d_feature 128, the epipolar transformer
 (downscale 4, 32 samples per line, 2 cross-attention layers whose
@@ -24,7 +25,14 @@ rematerialized and 7 batches accumulated per update.
 `re10k_depth_loss` trains the same model on MSE + LPIPS + a depth
 smoothness loss on a rendered depth map, without remat or accumulation.
 `re10k_ablation_no_epipolar_transformer` is the published ablation without
-the transformer, remat or accumulation.
+the transformer, remat or accumulation. `acid` trains `re10k`'s model on
+ACID (only the dataset roots differ); `re10k_3_view` encodes 3 context
+views (with view embeddings for the epipolar transformer) at batch 3;
+`re10k_ablation_no_depth_encoding` drops the transformer's depth encoding
+(`num_octaves: 0`); `re10k_ablation_no_probabilistic_sampling` places one
+Gaussian per pixel at the most likely depth with the transmittance
+opacity. These four keep `config/main.yaml`'s trainer settings: no remat,
+no accumulation.
 """
 
 from __future__ import annotations
@@ -394,6 +402,8 @@ class TrainingCfg:
     loss: tuple = (LossMseCfg(), LossLpipsCfg())
     gradient_clip_val: float = 0.5
     accumulate_grad_batches: int = 1
+    # `data_loader.train.batch_size`: examples per optimizer update.
+    batch_size: int = 4
 
 
 def re10k() -> tuple[EncoderEpipolarCfg, DecoderSplattingCfg]:
@@ -437,6 +447,7 @@ def re10k_training() -> TrainingCfg:
         loss=(LossMseCfg(weight=1.0), LossLpipsCfg(weight=0.05, apply_after_step=150_000)),
         gradient_clip_val=0.5,
         accumulate_grad_batches=7,
+        batch_size=7,
     )
 
 
@@ -456,6 +467,32 @@ def re10k_ablation_no_epipolar_transformer_training() -> TrainingCfg:
     )
 
 
+def re10k_3_view() -> tuple[EncoderEpipolarCfg, DecoderSplattingCfg]:
+    """The `re10k_3_view` experiment: `re10k` with 3 context views."""
+    encoder, decoder = re10k()
+    return dataclasses.replace(encoder, num_context_views=3), decoder
+
+
+def re10k_3_view_training() -> TrainingCfg:
+    """`re10k_3_view`'s training settings: the ablation's, at batch 3."""
+    return dataclasses.replace(re10k_ablation_no_epipolar_transformer_training(), batch_size=3)
+
+
+def re10k_ablation_no_depth_encoding() -> tuple[EncoderEpipolarCfg, DecoderSplattingCfg]:
+    """The `re10k_ablation_no_depth_encoding` experiment: `re10k` without
+    the epipolar transformer's depth encoding (`num_octaves: 0`)."""
+    encoder, decoder = re10k()
+    et = dataclasses.replace(encoder.epipolar_transformer, num_octaves=0)
+    return dataclasses.replace(encoder, epipolar_transformer=et), decoder
+
+
+def re10k_ablation_no_probabilistic_sampling() -> tuple[EncoderEpipolarCfg, DecoderSplattingCfg]:
+    """The `re10k_ablation_no_probabilistic_sampling` experiment: `re10k`
+    with one Gaussian per pixel and transmittance opacities."""
+    encoder, decoder = re10k()
+    return dataclasses.replace(encoder, gaussians_per_pixel=1, use_transmittance=True), decoder
+
+
 def re10k_depth_loss_training() -> TrainingCfg:
     """The `re10k_depth_loss` experiment's training settings (its model is
     `re10k`'s): a rendered depth map per target view (`depth_mode: depth`)
@@ -471,10 +508,13 @@ def re10k_depth_loss_training() -> TrainingCfg:
         ),
         gradient_clip_val=0.5,
         accumulate_grad_batches=1,
+        batch_size=7,
     )
 
 
 # (model config, training config) by experiment name, for the scripts.
+# Every experiment that keeps config/main.yaml's trainer settings trains as
+# the ablation does (batch 7 unless it says otherwise).
 EXPERIMENTS = {
     "re10k": (re10k, re10k_training),
     "re10k_depth_loss": (re10k, re10k_depth_loss_training),
@@ -482,7 +522,25 @@ EXPERIMENTS = {
         re10k_ablation_no_epipolar_transformer,
         re10k_ablation_no_epipolar_transformer_training,
     ),
+    "acid": (re10k, re10k_ablation_no_epipolar_transformer_training),
+    "re10k_3_view": (re10k_3_view, re10k_3_view_training),
+    "re10k_ablation_no_depth_encoding": (
+        re10k_ablation_no_depth_encoding,
+        re10k_ablation_no_epipolar_transformer_training,
+    ),
+    "re10k_ablation_no_probabilistic_sampling": (
+        re10k_ablation_no_probabilistic_sampling,
+        re10k_ablation_no_epipolar_transformer_training,
+    ),
 }
+
+
+def default_model() -> tuple[EncoderEpipolarCfg, DecoderSplattingCfg]:
+    """The model that `config/main.yaml` composes with no experiment:
+    `config/model/encoder/epipolar.yaml` with its default `resnet` backbone
+    (resnet50, 5 layers, InstanceNorm), read through `load_config`."""
+    model = load_config([]).model
+    return model.encoder, model.decoder
 
 
 __all__ = [
@@ -525,4 +583,9 @@ __all__ = [
     "re10k_depth_loss_training",
     "re10k_ablation_no_epipolar_transformer",
     "re10k_ablation_no_epipolar_transformer_training",
+    "re10k_3_view",
+    "re10k_3_view_training",
+    "re10k_ablation_no_depth_encoding",
+    "re10k_ablation_no_probabilistic_sampling",
+    "default_model",
 ]

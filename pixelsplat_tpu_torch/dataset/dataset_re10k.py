@@ -8,10 +8,12 @@ camera-to-world extrinsics, applies the view sampler, the FOV, shape and
 baseline filters, the baseline-1 world rescale and the host-side
 augmentation and crop shims. ACID ships in the same format.
 
-Examples are numpy arrays; batching and device transfer happen later. The
-JAX package also reads a `.psz` sibling of a chunk through its native
-loader; this reader always reads the `.torch` file, as the JAX one does
-when its loader is unavailable.
+Examples are numpy arrays; batching and device transfer happen later.
+Where a chunk has a `.psz` sibling (`scripts/transcode_chunks.py`) and the
+native loader builds (`native/`), the chunk is read from it: memory-mapped
+poses and multithreaded libjpeg decodes of only the frames the view sampler
+picks. Otherwise the `.torch` file is read, as the JAX reader does; the
+route is chosen per chunk in the process that reads it.
 """
 
 from __future__ import annotations
@@ -32,6 +34,32 @@ from .shims.augmentation_shim import apply_augmentation_shim
 from .shims.crop_shim import apply_crop_shim
 from .types import Stage
 from .view_sampler import ViewSampler
+
+
+def open_native(chunk_path: Path):
+    """A `NativeChunk` of `chunk_path`'s `.psz` sibling, or None where the
+    `.torch` file is to be read: no sibling, the native loader unavailable
+    in this process, or a sibling it cannot open."""
+    psz = Path(chunk_path).with_suffix(".psz")
+    if not psz.exists():
+        return None
+    from ..native import NativeChunk, native_available
+
+    if not native_available():
+        return None
+    try:
+        return NativeChunk(psz)
+    except OSError:  # the loader refused the file
+        return None
+
+
+def chunk_route(chunk_path: Path) -> Literal["psz", "torch"]:
+    """The file a reader in this process takes for `chunk_path`."""
+    native = open_native(chunk_path)
+    if native is None:
+        return "torch"
+    native.close()
+    return "psz"
 
 
 @dataclass(frozen=True)
@@ -103,6 +131,10 @@ class DatasetRE10k:
             chunks = [c for i, c in enumerate(chunks) if i % self.num_workers == self.worker_id]
 
         for chunk_path in chunks:
+            native = open_native(chunk_path)
+            if native is not None:
+                yield from self._iter_native(native)
+                continue
             chunk = self._load_chunk(chunk_path)
             if self.cfg.overfit_to_scene is not None:
                 item = [x for x in chunk if x["key"] == self.cfg.overfit_to_scene]
@@ -121,6 +153,28 @@ class DatasetRE10k:
     # ------------------------------------------------------------------
     def _load_chunk(self, path: Path) -> list[dict]:
         return torch.load(path, map_location="cpu", weights_only=False)
+
+    def _iter_native(self, native) -> Iterator[dict]:
+        """A `.psz` chunk's examples, in the order and with the draws of the
+        `.torch` route: the same permutation of the chunk's scenes, and an
+        overfit scene repeated over the chunk."""
+        order = list(range(len(native)))
+        if self.cfg.overfit_to_scene is not None:
+            match = [i for i in order if native.key(i) == self.cfg.overfit_to_scene]
+            order = match * len(order) if match else order
+        if self.stage in ("train", "val"):
+            order = [order[i] for i in self.rng.permutation(len(order))]
+        for i in order:
+            extrinsics, intrinsics = self.convert_poses(native.poses(i))
+
+            def get_images(indices, i=i):
+                frames = native.decode_frames(i, [int(x) for x in indices])
+                return frames.astype(np.float32).transpose(0, 3, 1, 2) / 255.0
+
+            out = self._assemble(native.key(i), extrinsics, intrinsics, get_images)
+            if out is not None:
+                yield out
+        native.close()
 
     def _process_example(self, example: dict) -> Optional[dict]:
         cameras = np.asarray(example["cameras"], dtype=np.float32)

@@ -1,8 +1,9 @@
 """The JAX package's parameter trees -> the port's `state_dict`s.
 
-The inverse of `pixelsplat_tpu/interop/torch_import.py::convert_encoder`
-for the encoder this port has (DINO backbone, with or without the epipolar
-transformer). Input is the Flax parameter tree as nested dicts of numpy arrays (what
+The inverse of `pixelsplat_tpu/interop/torch_import.py::convert_encoder`:
+the DINO backbone or a ResNet one (the torchvision trunks, whose
+InstanceNorm has no parameters, or the frozen-BatchNorm `dino_resnet50`),
+with or without the epipolar transformer, and `to_opacity`. Input is the Flax parameter tree as nested dicts of numpy arrays (what
 `jax.device_get(encoder.init(...)["params"])` gives); output is keyed by
 the reference's torch parameter names, which are the port's.
 
@@ -71,20 +72,28 @@ def _batchnorm(sd: dict, prefix: str, p: Mapping) -> None:
 
 
 def _resnet(sd: dict, prefix: str, p: Mapping, model: str, num_layers: int) -> None:
-    _, stage_sizes = RESNET_SPECS[model]
+    """A trunk and its projections; the norms only where they have
+    parameters (the frozen BatchNorm of `dino_resnet50`)."""
+    block_kind, stage_sizes = RESNET_SPECS[model]
+    convs = (1, 2) if block_kind == "basic" else (1, 2, 3)
+
+    def norm(name, tree, key):
+        if key in tree:
+            _batchnorm(sd, name, tree[key])
+
     _conv(sd, f"{prefix}.model.conv1", p["conv1"])
-    _batchnorm(sd, f"{prefix}.model.bn1", p["bn1"])
+    norm(f"{prefix}.model.bn1", p, "bn1")
     _conv(sd, f"{prefix}.projections.layer0", p["projection0"])
     for stage in range(1, num_layers):
         for i in range(stage_sizes[stage - 1]):
             blk = p[f"layer{stage}_block{i}"]
             tp = f"{prefix}.model.layer{stage}.{i}"
-            for n in (1, 2, 3):
+            for n in convs:
                 _conv(sd, f"{tp}.conv{n}", blk[f"conv{n}"])
-                _batchnorm(sd, f"{tp}.bn{n}", blk[f"bn{n}"])
+                norm(f"{tp}.bn{n}", blk, f"bn{n}")
             if "downsample" in blk:
                 _conv(sd, f"{tp}.downsample.0", blk["downsample"])
-                _batchnorm(sd, f"{tp}.downsample.1", blk["bn_ds"])
+                norm(f"{tp}.downsample.1", blk, "bn_ds")
         _conv(sd, f"{prefix}.projections.layer{stage}", p[f"projection{stage}"])
 
 
@@ -152,22 +161,25 @@ def _epipolar_transformer(sd: dict, prefix: str, p: Mapping, cfg: EpipolarTransf
 
 def state_dict_from_jax(params: Mapping, cfg: EncoderEpipolarCfg) -> dict[str, torch.Tensor]:
     """The port encoder's state_dict from the JAX encoder's parameter tree."""
-    if not isinstance(cfg.backbone, BackboneDinoCfg):
-        raise NotImplementedError("the port has the DINO backbone only")
     sd: dict[str, torch.Tensor] = {}
     bb = params["backbone"]
-    spec = VIT_SPECS[cfg.backbone.model]
-    _dino_vit(sd, "backbone.dino", bb["dino"], spec["depth"], spec["dim"])
-    _resnet(sd, "backbone.resnet_backbone", bb["resnet_backbone"], "dino_resnet50", 4)
-    for mlp in ("global_token", "local_token"):
-        _linear(sd, f"backbone.{mlp}_mlp.0", bb[f"{mlp}_fc1"])
-        _linear(sd, f"backbone.{mlp}_mlp.2", bb[f"{mlp}_fc2"])
+    if isinstance(cfg.backbone, BackboneDinoCfg):
+        spec = VIT_SPECS[cfg.backbone.model]
+        _dino_vit(sd, "backbone.dino", bb["dino"], spec["depth"], spec["dim"])
+        _resnet(sd, "backbone.resnet_backbone", bb["resnet_backbone"], "dino_resnet50", 4)
+        for mlp in ("global_token", "local_token"):
+            _linear(sd, f"backbone.{mlp}_mlp.0", bb[f"{mlp}_fc1"])
+            _linear(sd, f"backbone.{mlp}_mlp.2", bb[f"{mlp}_fc2"])
+    else:
+        _resnet(sd, "backbone", bb, cfg.backbone.model, cfg.backbone.num_layers)
     _linear(sd, "backbone_projection.1", params["backbone_projection"])
     _conv(sd, "high_resolution_skip.0", params["high_resolution_skip"])
     _linear(sd, "to_gaussians.1", params["to_gaussians"])
     _linear(sd, "depth_predictor.projection.1", params["depth_predictor"]["projection"])
     if cfg.use_epipolar_transformer:
         _epipolar_transformer(sd, "epipolar_transformer", params["epipolar_transformer"], cfg.epipolar_transformer)
+    if cfg.predict_opacity:
+        _linear(sd, "to_opacity.1", params["to_opacity"])
     return sd
 
 

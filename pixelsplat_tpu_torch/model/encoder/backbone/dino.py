@@ -5,18 +5,23 @@ Port of `pixelsplat_tpu/model/encoder/backbone/dino.py`: a DINO ViT
 through a small MLP to `d_out`, is broadcast to the pixel grid (patch
 tokens by nearest repeat) and summed with the ResNet branch. Module names
 are the reference's (`dino.blocks.0.attn.qkv`, `global_token_mlp.0`, ...).
+With a compute `dtype` (`model/precision.py`) the patch embedding, the
+attention and MLP projections, the token MLPs and the ResNet branch's
+convolutions run in it, as in the JAX module; the LayerNorms and the
+residual stream are f32.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Literal
+from typing import Literal, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from ... import precision
 from .resnet import BackboneResnet, BackboneResnetCfg
 
 VIT_SPECS: dict[str, dict] = {
@@ -84,11 +89,11 @@ def resize_pos_embed(grid: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.heads = heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = precision.Linear(dim, 3 * dim, compute_dtype=dtype)
+        self.proj = precision.Linear(dim, dim, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, t, dim = x.shape
@@ -100,10 +105,10 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = precision.Linear(dim, hidden, compute_dtype=dtype)
+        self.fc2 = precision.Linear(hidden, dim, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # Exact (erf) GELU.
@@ -113,12 +118,12 @@ class Mlp(nn.Module):
 class ViTBlock(nn.Module):
     """Pre-norm block; LayerNorm eps 1e-5 as in the JAX package."""
 
-    def __init__(self, dim: int, heads: int, mlp_ratio: int = 4):
+    def __init__(self, dim: int, heads: int, mlp_ratio: int = 4, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = Attention(dim, heads)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, dim * mlp_ratio)
+        self.norm1 = precision.LayerNorm(dim, eps=1e-5)
+        self.attn = Attention(dim, heads, dtype)
+        self.norm2 = precision.LayerNorm(dim, eps=1e-5)
+        self.mlp = Mlp(dim, dim * mlp_ratio, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
@@ -126,23 +131,24 @@ class ViTBlock(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    def __init__(self, patch: int, dim: int):
+    def __init__(self, patch: int, dim: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.proj = nn.Conv2d(3, dim, patch, stride=patch)
+        self.proj = precision.Conv2d(3, dim, patch, stride=patch, compute_dtype=dtype)
 
 
 class DinoViT(nn.Module):
     """DINO vision transformer trunk; returns normalized (cls, patch) tokens."""
 
-    def __init__(self, patch: int, dim: int, depth: int, heads: int, pos_grid: int = 28):
+    def __init__(self, patch: int, dim: int, depth: int, heads: int, pos_grid: int = 28,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dim = dim
         self.pos_grid = pos_grid
-        self.patch_embed = PatchEmbed(patch, dim)
+        self.patch_embed = PatchEmbed(patch, dim, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + pos_grid * pos_grid, dim))
-        self.blocks = nn.ModuleList(ViTBlock(dim, heads) for _ in range(depth))
-        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.blocks = nn.ModuleList(ViTBlock(dim, heads, dtype=dtype) for _ in range(depth))
+        self.norm = precision.LayerNorm(dim, eps=1e-5)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """images: (n, 3, h, w) -> (n, 1 + h/p * w/p, dim) tokens."""
@@ -164,24 +170,27 @@ class DinoViT(nn.Module):
 
 
 class BackboneDino(nn.Module):
-    def __init__(self, cfg: BackboneDinoCfg):
+    def __init__(self, cfg: BackboneDinoCfg, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         spec = VIT_SPECS[cfg.model]
         self.patch = spec["patch"]
         self.resnet_backbone = BackboneResnet(
-            BackboneResnetCfg("resnet", "dino_resnet50", 4, False, cfg.d_out)
+            BackboneResnetCfg("resnet", "dino_resnet50", 4, False, cfg.d_out), dtype=dtype
         )
         self.dino = DinoViT(
-            spec["patch"], spec["dim"], spec["depth"], spec["heads"], cfg.resolved_pos_grid
+            spec["patch"], spec["dim"], spec["depth"], spec["heads"], cfg.resolved_pos_grid, dtype=dtype
         )
         dim = spec["dim"]
-        self.global_token_mlp = nn.Sequential(
-            nn.Linear(dim, dim), nn.ReLU(), nn.Linear(dim, cfg.d_out)
-        )
-        self.local_token_mlp = nn.Sequential(
-            nn.Linear(dim, dim), nn.ReLU(), nn.Linear(dim, cfg.d_out)
-        )
+
+        def token_mlp():
+            return nn.Sequential(
+                precision.Linear(dim, dim, compute_dtype=dtype), nn.ReLU(),
+                precision.Linear(dim, cfg.d_out, compute_dtype=dtype),
+            )
+
+        self.global_token_mlp = token_mlp()
+        self.local_token_mlp = token_mlp()
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """images: (b, v, 3, h, w) -> (b, v, h, w, d_out), channels-last."""

@@ -1,21 +1,30 @@
 """ResNet backbone with multi-scale feature fusion.
 
-Port of `pixelsplat_tpu/model/encoder/backbone/resnet.py` for the
-`dino_resnet50` trunk the DINO backbone uses: a torchvision-layout
-ResNet-50 whose BatchNorm layers are frozen (inference mode), a 1x1
-projection of every stage to `d_out`, an align-corners bilinear upsample
-of each to full resolution, and their sum. Parameter names are the
-reference's (`model.layer1.0.conv1`, `projections.layer0`, ...).
+Port of `pixelsplat_tpu/model/encoder/backbone/resnet.py`: a
+torchvision-layout ResNet trunk, a 1x1 projection of every stage to
+`d_out`, an align-corners bilinear upsample of each to full resolution, and
+their sum. The trunks of `RESNET_SPECS` normalize with a parameter-free
+InstanceNorm, as the reference's torchvision models do; `dino_resnet50`
+(the DINO backbone's branch) with frozen, inference-mode BatchNorm. Both
+norms work in f32 whatever the compute dtype; the convolutions run in the
+compute `dtype` (`model/precision.py`), the projections in f32.
+`use_first_pool` applies torchvision's 3x3 stride-2 max pool before the
+first stage, as the JAX package does (the reference never applied it).
+Parameter names are the reference's (`model.layer1.0.conv1`,
+`projections.layer0`, ...).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Literal
+from typing import Literal, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from ... import precision
 
 RESNET_SPECS: dict[str, tuple[str, tuple[int, ...]]] = {
     "resnet18": ("basic", (2, 2, 2, 2)),
@@ -36,8 +45,16 @@ class BackboneResnetCfg:
     d_out: int = 512
 
 
+class InstanceNorm2d(nn.Module):
+    """Parameter-free InstanceNorm over each map's H x W, in f32: biased
+    variance, eps 1e-5."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (n, c, h, w)
+        return F.instance_norm(x.float(), eps=1e-5)
+
+
 class FrozenBatchNorm2d(nn.Module):
-    """Inference-mode BatchNorm: (x - mean) * rsqrt(var + 1e-5) * w + b.
+    """Inference-mode BatchNorm, in f32: (x - mean) * rsqrt(var + 1e-5) * w + b.
 
     It never takes batch statistics, in `train()` mode either. The
     statistics are parameters, under the names of BatchNorm's buffers: the
@@ -56,29 +73,60 @@ class FrozenBatchNorm2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (n, c, h, w)
         scale = torch.rsqrt(self.running_var + 1e-5)
         shape = (1, -1, 1, 1)
-        return (x - self.running_mean.view(shape)) * scale.view(shape) * self.weight.view(
+        return (x.float() - self.running_mean.view(shape)) * scale.view(shape) * self.weight.view(
             shape
         ) + self.bias.view(shape)
 
 
-class Bottleneck(nn.Module):
-    """torchvision Bottleneck (stride on the 3x3 conv), frozen BN."""
+def _norm(kind: str, channels: int) -> nn.Module:
+    return FrozenBatchNorm2d(channels) if kind == "batch" else InstanceNorm2d()
 
-    def __init__(self, in_channels: int, channels: int, stride: int = 1):
+
+def _conv(in_ch: int, out_ch: int, k: int, stride: int, dtype) -> nn.Module:
+    return precision.Conv2d(in_ch, out_ch, k, stride=stride, padding=k // 2, bias=False, compute_dtype=dtype)
+
+
+class BasicBlock(nn.Module):
+    """torchvision BasicBlock (two 3x3 convolutions); resnet18 and resnet34."""
+
+    expansion = 1
+
+    def __init__(self, in_channels: int, channels: int, stride: int = 1, norm: str = "instance",
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv1 = _conv(in_channels, channels, 3, stride, dtype)
+        self.bn1 = _norm(norm, channels)
+        self.conv2 = _conv(channels, channels, 3, 1, dtype)
+        self.bn2 = _norm(norm, channels)
+        self.downsample = None
+        if stride != 1 or in_channels != channels:
+            self.downsample = nn.Sequential(_conv(in_channels, channels, 1, stride, dtype), _norm(norm, channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(y + residual)
+
+
+class Bottleneck(nn.Module):
+    """torchvision Bottleneck (stride on the 3x3 conv)."""
+
+    expansion = 4
+
+    def __init__(self, in_channels: int, channels: int, stride: int = 1, norm: str = "instance",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         out_ch = channels * 4
-        self.conv1 = nn.Conv2d(in_channels, channels, 1, bias=False)
-        self.bn1 = FrozenBatchNorm2d(channels)
-        self.conv2 = nn.Conv2d(channels, channels, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = FrozenBatchNorm2d(channels)
-        self.conv3 = nn.Conv2d(channels, out_ch, 1, bias=False)
-        self.bn3 = FrozenBatchNorm2d(out_ch)
+        self.conv1 = _conv(in_channels, channels, 1, 1, dtype)
+        self.bn1 = _norm(norm, channels)
+        self.conv2 = _conv(channels, channels, 3, stride, dtype)
+        self.bn2 = _norm(norm, channels)
+        self.conv3 = _conv(channels, out_ch, 1, 1, dtype)
+        self.bn3 = _norm(norm, out_ch)
         self.downsample = None
         if stride != 1 or in_channels != out_ch:
-            self.downsample = nn.Sequential(
-                nn.Conv2d(in_channels, out_ch, 1, stride=stride, bias=False),
-                FrozenBatchNorm2d(out_ch),
-            )
+            self.downsample = nn.Sequential(_conv(in_channels, out_ch, 1, stride, dtype), _norm(norm, out_ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -91,19 +139,22 @@ class Bottleneck(nn.Module):
 class _Trunk(nn.Module):
     """The torchvision module tree the reference keeps under `model`."""
 
-    def __init__(self, stage_sizes: tuple[int, ...], num_stages: int):
+    def __init__(self, block_kind: str, stage_sizes: tuple[int, ...], num_stages: int, norm: str, dtype):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm2d(64)
+        block = BasicBlock if block_kind == "basic" else Bottleneck
+        self.conv1 = precision.Conv2d(3, 64, 7, stride=2, padding=3, bias=False, compute_dtype=dtype)
+        self.bn1 = _norm(norm, 64)
         in_ch = 64
+        self.widths = [64]
         for stage in range(1, num_stages + 1):
             width = (64, 128, 256, 512)[stage - 1]
             blocks = []
             for i in range(stage_sizes[stage - 1]):
                 stride = 2 if (stage > 1 and i == 0) else 1
-                blocks.append(Bottleneck(in_ch, width, stride))
-                in_ch = width * 4
+                blocks.append(block(in_ch, width, stride, norm, dtype))
+                in_ch = width * block.expansion
             self.add_module(f"layer{stage}", nn.Sequential(*blocks))
+            self.widths.append(in_ch)
 
 
 def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -144,21 +195,15 @@ def _resize_and_sum(features: list[torch.Tensor], shape: tuple[int, int]) -> tor
 
 
 class BackboneResnet(nn.Module):
-    def __init__(self, cfg: BackboneResnetCfg):
+    def __init__(self, cfg: BackboneResnetCfg, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.model != "dino_resnet50":
-            raise NotImplementedError(
-                f"{cfg.model}: the port has the frozen-BatchNorm dino_resnet50 trunk; "
-                "the InstanceNorm torchvision trunks come with the resnet-backbone slice"
-            )
-        if cfg.use_first_pool:
-            raise NotImplementedError("use_first_pool (no shipped config sets it)")
         self.cfg = cfg
-        _, stage_sizes = RESNET_SPECS[cfg.model]
-        self.model = _Trunk(stage_sizes, cfg.num_layers - 1)
-        widths = [64] + [w * 4 for w in (64, 128, 256, 512)[: cfg.num_layers - 1]]
+        block_kind, stage_sizes = RESNET_SPECS[cfg.model]
+        norm = "batch" if cfg.model == "dino_resnet50" else "instance"
+        self.model = _Trunk(block_kind, stage_sizes, cfg.num_layers - 1, norm, dtype)
+        # In f32: Flax's Conv without a dtype promotes its (f32) input and kernel.
         self.projections = nn.ModuleDict(
-            {f"layer{i}": nn.Conv2d(c, cfg.d_out, 1) for i, c in enumerate(widths)}
+            {f"layer{i}": precision.Conv2d(c, cfg.d_out, 1) for i, c in enumerate(self.model.widths)}
         )
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
@@ -167,6 +212,8 @@ class BackboneResnet(nn.Module):
         x = images.reshape(b * v, 3, h, w)
         x = torch.relu(self.model.bn1(self.model.conv1(x)))
         features = [self.projections["layer0"](x)]
+        if self.cfg.use_first_pool:
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
         for stage in range(1, self.cfg.num_layers):
             x = getattr(self.model, f"layer{stage}")(x)
             features.append(self.projections[f"layer{stage}"](x))

@@ -5,7 +5,13 @@ projection to d_feature -> epipolar transformer (unless
 `use_epipolar_transformer=False`, the published ablation) -> high-resolution
 conv skip -> monocular depth predictor -> per-pixel Gaussian head ->
 Gaussian adapter, with the pdf -> opacity warm-up mapping and per-pixel xy
-offsets.
+offsets. `predict_opacity` scales every opacity by a learned per-pixel
+sigmoid; `use_transmittance` takes the opacities from the depth pdf over
+the mass left in front of each bucket. `compute_dtype="bfloat16"` is the
+JAX package's bf16 compute policy (`model/precision.py`): the backbone, its
+projection, the epipolar transformer and the high-resolution skip run in
+bf16; the features go back to f32 before the depth predictor, and the
+heads, the Gaussians and the rasterizer stay f32.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from torch import nn
 
 from ...geometry.projection import sample_image_grid
 from ...ops.rasterizer.projection import GaussiansSoA
+from .. import precision
 from ..types import Gaussians
 from .backbone.dino import BackboneDino, BackboneDinoCfg
 from .backbone.resnet import BackboneResnet, BackboneResnetCfg
@@ -54,41 +61,40 @@ class EncoderEpipolarCfg:
     use_epipolar_transformer: bool = True
     use_transmittance: bool = False
     num_context_views: int = 2
-    # The JAX package's bf16 compute policy; the port computes in float32.
+    # The bf16 compute policy ("bfloat16"); None computes in float32.
     compute_dtype: Optional[str] = None
 
 
 class EncoderEpipolar(nn.Module):
     def __init__(self, cfg: EncoderEpipolarCfg):
         super().__init__()
-        if cfg.compute_dtype is not None:
-            raise NotImplementedError("compute_dtype: the port computes in float32")
-        if cfg.predict_opacity or cfg.use_transmittance:
-            raise NotImplementedError(
-                "predict_opacity / use_transmittance: no shipped config of this slice sets them"
-            )
         self.cfg = cfg
+        dtype = self.dtype = precision.resolve_dtype(cfg.compute_dtype)
         if isinstance(cfg.backbone, BackboneDinoCfg):
-            self.backbone = BackboneDino(cfg.backbone)
+            self.backbone = BackboneDino(cfg.backbone, dtype=dtype)
         else:
-            self.backbone = BackboneResnet(cfg.backbone)
+            self.backbone = BackboneResnet(cfg.backbone, dtype=dtype)
         d_out = cfg.backbone.d_out
-        self.backbone_projection = nn.Sequential(nn.ReLU(), nn.Linear(d_out, cfg.d_feature))
+        self.backbone_projection = nn.Sequential(
+            nn.ReLU(), precision.Linear(d_out, cfg.d_feature, compute_dtype=dtype)
+        )
         if cfg.use_epipolar_transformer:
             self.epipolar_transformer = EpipolarTransformer(
-                cfg.epipolar_transformer, cfg.d_feature, num_context_views=cfg.num_context_views
+                cfg.epipolar_transformer, cfg.d_feature, num_context_views=cfg.num_context_views, dtype=dtype
             )
         self.high_resolution_skip = nn.Sequential(
-            nn.Conv2d(3, cfg.d_feature, 7, padding=3), nn.ReLU()
+            precision.Conv2d(3, cfg.d_feature, 7, padding=3, compute_dtype=dtype), nn.ReLU()
         )
         self.depth_predictor = DepthPredictorMonocular(
-            cfg.d_feature, cfg.num_monocular_samples, cfg.num_surfaces
+            cfg.d_feature, cfg.num_monocular_samples, cfg.num_surfaces, cfg.use_transmittance
         )
         self.gaussian_adapter = GaussianAdapter(cfg.gaussian_adapter)
         self.to_gaussians = nn.Sequential(
             nn.ReLU(),
             nn.Linear(cfg.d_feature, cfg.num_surfaces * (2 + self.gaussian_adapter.d_in)),
         )
+        if cfg.predict_opacity:
+            self.to_opacity = nn.Sequential(nn.ReLU(), nn.Linear(cfg.d_feature, 1))
 
     def map_pdf_to_opacity(self, pdf: torch.Tensor, global_step: int) -> torch.Tensor:
         """Warm-up-scheduled exponent mapping."""
@@ -141,7 +147,7 @@ class EncoderEpipolar(nn.Module):
         skip = self.high_resolution_skip(image.reshape(b * v, 3, h, w))
         features = features + skip.permute(0, 2, 3, 1).reshape(b, v, h, w, cfg.d_feature)
 
-        features = features.reshape(b, v, h * w, cfg.d_feature)
+        features = features.reshape(b, v, h * w, cfg.d_feature).float()
         gpp = 1 if deterministic else cfg.gaussians_per_pixel
         depths, densities = self.depth_predictor(
             features, context["near"], context["far"], deterministic, gpp, u=u, generator=generator
@@ -177,6 +183,8 @@ class EncoderEpipolar(nn.Module):
                 visualization_dump["sampling"] = sampling
         g = v * (h * w) * srf * spp
         opacities = gaussians.opacities
+        if cfg.predict_opacity:
+            opacities = torch.sigmoid(self.to_opacity(features))[..., None] * opacities  # (b, v, r, 1, 1)
         if pack_soa:
             # SoA g-order (v, srf, gpp, r): the sample axis is second
             # outermost, so the per-ray harmonics factor as (V, 1, R).

@@ -4,8 +4,11 @@ Port of `pixelsplat_tpu/model/encoder/epipolar/depth_predictor_monocular.py`.
 Per-pixel features give a categorical distribution over `num_samples`
 disparity buckets and a sigmoid offset within each; depths are sampled by
 inverse CDF (or taken top-k when deterministic). The opacity is the
-sampled bucket's probability (the transmittance-corrected variant, used
-by the `re10k_ablation_no_probabilistic_sampling` config, is not ported).
+sampled bucket's probability or, with `use_transmittance` (the
+`re10k_ablation_no_probabilistic_sampling` experiment), that probability
+over the mass left in front of the bucket, pdf / (1 - exclusive cumsum
+of pdf + 1e-10), so that a front-to-back composite of the buckets gives
+back the pdf.
 """
 
 from __future__ import annotations
@@ -23,11 +26,19 @@ from ....utils.distributions import (
 from .conversions import relative_disparity_to_depth
 
 
+def transmittance_opacity(pdf: torch.Tensor) -> torch.Tensor:
+    """pdf / (1 - exclusive cumsum(pdf) + 1e-10) along the bucket axis."""
+    partial = torch.cumsum(pdf, dim=-1)
+    partial = torch.cat([torch.zeros_like(partial[..., :1]), partial[..., :-1]], dim=-1)
+    return pdf / (1.0 - partial + 1e-10)
+
+
 class DepthPredictorMonocular(nn.Module):
-    def __init__(self, d_in: int, num_samples: int, num_surfaces: int):
+    def __init__(self, d_in: int, num_samples: int, num_surfaces: int, use_transmittance: bool = False):
         super().__init__()
         self.num_samples = num_samples
         self.num_surfaces = num_surfaces
+        self.use_transmittance = use_transmittance
         self.projection = nn.Sequential(
             nn.ReLU(), nn.Linear(d_in, 2 * num_samples * num_surfaces)
         )
@@ -62,4 +73,6 @@ class DepthPredictorMonocular(nn.Module):
         depth = relative_disparity_to_depth(
             relative_disparity, near[:, :, None, None, None], far[:, :, None, None, None]
         )
+        if self.use_transmittance:
+            return depth, onehot_gather(transmittance_opacity(pdf), index)
         return depth, pdf_i

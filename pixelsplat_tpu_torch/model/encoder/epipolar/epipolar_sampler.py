@@ -48,7 +48,9 @@ def sample_along_epipolar_lines(
     # Rays through every feature-grid pixel of every view.
     xy, _ = sample_image_grid((h, w), device=images.device, dtype=images.dtype)
     xy = xy.reshape(h * w, 2)
-    origins, directions = get_world_rays(xy, extrinsics[:, :, None], intrinsics[:, :, None])  # (b, v, r, 3)
+    # In the feature maps' dtype, as in the JAX package; the rays (and every
+    # product with an f32 camera there) are f32.
+    origins, directions = get_world_rays(xy.float(), extrinsics[:, :, None], intrinsics[:, :, None])  # (b, v, r, 3)
 
     projection = project_rays(
         origins[:, :, None],  # (b, v, 1, r, 3)
@@ -70,7 +72,9 @@ def sample_along_epipolar_lines(
     xy_sample = xy_min + sample_depth * (xy_max - xy_min)
 
     # Sample features from the view each epipolar line lives in.
-    source_images = collect_other_views(images, v)  # (b, v, ov, h, w, c)
+    # The taps' sums are f32 whatever the maps' dtype (bf16 taps times f32
+    # weights in the JAX package).
+    source_images = collect_other_views(images, v).float()  # (b, v, ov, h, w, c)
     coords = 2.0 * xy_sample - 1.0  # (b, v, ov, r, s, 2)
     features = grid_sample_nhwc_flat(
         source_images.reshape(b * v * (v - 1), h, w, c),

@@ -6,7 +6,10 @@ to the kv features, a cross-attention transformer whose feed-forward is an
 image self-attention block, and a transposed-conv upscale with a conv
 refinement. Feature maps are channels-last at this module's boundary and
 between its steps, as in the JAX package, so each reshape reads as there;
-only the convolutions see channels-first views.
+only the convolutions see channels-first views. With a compute `dtype`
+(`model/precision.py`) the convolutions, the depth encoding's projection
+and the transformer run in it, as in the JAX module; the epipolar samples
+come out f32.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from torch import nn
 
 from ....geometry.epipolar_lines import get_depth
+from ... import precision
 from ...encodings import PositionalEncoding
 from ...transformer.transformer import Transformer
 from .conversions import depth_to_relative_disparity
@@ -52,9 +56,9 @@ class ImageSelfAttentionFF(nn.Module):
     """Feed-forward layer that is an image self-attention block (with its
     own residual), on the (b*v*h*w, 1, c) token layout."""
 
-    def __init__(self, cfg: ImageSelfAttentionCfg, dim: int):
+    def __init__(self, cfg: ImageSelfAttentionCfg, dim: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.self_attention = ImageSelfAttention(cfg, dim, dim)
+        self.self_attention = ImageSelfAttention(cfg, dim, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, b: int, v: int, h: int, w: int) -> torch.Tensor:
         c = x.shape[-1]
@@ -64,19 +68,21 @@ class ImageSelfAttentionFF(nn.Module):
 
 
 class EpipolarTransformer(nn.Module):
-    def __init__(self, cfg: EpipolarTransformerCfg, d_in: int, num_context_views: int = 2):
+    def __init__(self, cfg: EpipolarTransformerCfg, d_in: int, num_context_views: int = 2,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         self.d_in = d_in
         if cfg.downscale:
-            self.downscaler = nn.Conv2d(d_in, d_in, cfg.downscale, cfg.downscale)
-            self.upscaler = nn.ConvTranspose2d(d_in, d_in, cfg.downscale, cfg.downscale)
+            self.downscaler = precision.Conv2d(d_in, d_in, cfg.downscale, cfg.downscale, compute_dtype=dtype)
+            self.upscaler = precision.ConvTranspose2d(d_in, d_in, cfg.downscale, cfg.downscale, compute_dtype=dtype)
             self.upscale_refinement = nn.Sequential(
-                nn.Conv2d(d_in, d_in * 2, 7, 1, 3), nn.GELU(), nn.Conv2d(d_in * 2, d_in, 7, 1, 3)
+                precision.Conv2d(d_in, d_in * 2, 7, 1, 3, compute_dtype=dtype), nn.GELU(),
+                precision.Conv2d(d_in * 2, d_in, 7, 1, 3, compute_dtype=dtype),
             )
         if cfg.num_octaves > 0:
             encoding = PositionalEncoding(cfg.num_octaves)
-            self.depth_encoding = nn.Sequential(encoding, nn.Linear(encoding.d_out(1), d_in))
+            self.depth_encoding = nn.Sequential(encoding, precision.Linear(encoding.d_out(1), d_in, compute_dtype=dtype))
         # Per-view embeddings tell the other views apart when there are
         # more than two context views.
         if num_context_views > 2:
@@ -84,7 +90,8 @@ class EpipolarTransformer(nn.Module):
         self.transformer = Transformer(
             d_in, cfg.num_layers, cfg.num_heads, cfg.d_dot, cfg.d_mlp,
             selfatt=False, kv_dim=d_in,
-            feed_forward_factory=lambda dim, _mlp_dim: ImageSelfAttentionFF(cfg.self_attention, dim),
+            feed_forward_factory=lambda dim, _mlp_dim: ImageSelfAttentionFF(cfg.self_attention, dim, dtype=dtype),
+            dtype=dtype,
         )
 
     def forward(

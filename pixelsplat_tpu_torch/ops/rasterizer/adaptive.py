@@ -15,7 +15,7 @@ from dataclasses import replace
 
 import torch
 
-from .binning import tile_occupancy
+from .binning import count_big, tile_occupancy
 from .projection import project_gaussians
 from .render import DEFAULT_SETTINGS, RenderSettings, render
 
@@ -32,24 +32,28 @@ def _occupancy_stats(
     span: int,
     big_capacity: int,
     chunk: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Max per-tile count and max flat-budget demand over the b views."""
-    max_counts, budgets = [], []
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Max per-tile count and max flat-budget demand over the b views, and
+    the big-list capacity that holds every view's big Gaussians (at least
+    `big_capacity`)."""
+    projected = []
     for e, k, n, m, c, o in zip(extrinsics, intrinsics, near, means, covariances, opacities):
         scale = 1.0 / n
         e = e.clone()
         e[:3, 3] = e[:3, 3] * scale
-        proj = project_gaussians(
+        projected.append(project_gaussians(
             e, k, image_shape, m * scale, c * scale**2, o,
             colors_precomp=torch.zeros((m.shape[0], 1), dtype=m.dtype, device=m.device),
-        )
-        max_count, budget = tile_occupancy(
-            proj, image_shape, tile_size=tile_size, span=span,
-            big_capacity=big_capacity, chunk=chunk,
-        )
-        max_counts.append(max_count)
-        budgets.append(budget)
-    return torch.stack(max_counts).max(), torch.stack(budgets).max()
+        ))
+    n_big = int(torch.stack([count_big(p, image_shape, tile_size, span) for p in projected]).max())
+    if n_big > big_capacity:
+        big_capacity = -(-n_big // chunk) * chunk
+    stats = [
+        tile_occupancy(p, image_shape, tile_size=tile_size, span=span, big_capacity=big_capacity, chunk=chunk)
+        for p in projected
+    ]
+    max_counts, budgets = zip(*stats)
+    return torch.stack(max_counts).max(), torch.stack(budgets).max(), big_capacity
 
 
 def choose_settings(
@@ -64,12 +68,13 @@ def choose_settings(
     capacities: tuple[int, ...] = (512, 1024, 2048),
     margin: float = 1.0,
 ) -> RenderSettings:
-    """The smallest sufficient capacity and pair budget for this scene.
+    """The smallest sufficient capacity and pair budget for this scene, and
+    a big-list capacity that holds its big Gaussians.
 
     `margin` scales both statistics, for callers whose render cameras only
     approximate the probed ones.
     """
-    max_count, budget = _occupancy_stats(
+    max_count, budget, big_capacity = _occupancy_stats(
         extrinsics, intrinsics, near, gaussian_means, gaussian_covariances,
         gaussian_opacities, image_shape, settings.tile_size, settings.span,
         settings.big_capacity, settings.chunk,
@@ -79,13 +84,13 @@ def choose_settings(
     num_tiles = (-(-w // settings.tile_size)) * (-(-h // settings.tile_size))
     budget = int(budget.item() * margin) + (num_tiles * settings.chunk if margin > 1 else 0)
 
-    chosen = settings
+    chosen = replace(settings, big_capacity=big_capacity)
     for c in sorted(capacities):
         if max_count <= c and c <= settings.capacity:
-            chosen = replace(settings, capacity=c)
+            chosen = replace(chosen, capacity=c)
             break
     g = gaussian_means.shape[1]
-    worst = settings.span**2 * g + num_tiles * (settings.big_capacity + settings.chunk)
+    worst = settings.span**2 * g + num_tiles * (big_capacity + settings.chunk)
     pair_budget = -(-max(min(budget, worst), 65536) // settings.chunk) * settings.chunk
     return replace(chosen, pair_budget=pair_budget)
 

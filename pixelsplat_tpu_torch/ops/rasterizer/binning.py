@@ -258,6 +258,15 @@ def bin_gaussians(
     return TileLists(flat=flat, block_start=astart, counts=counts, overflow=overflow)
 
 
+def count_big(projected: ProjectedGaussians, image_shape: tuple[int, int], tile_size: int = 16,
+              span: int = 2) -> torch.Tensor:
+    """How many valid Gaussians span more than `span` tiles on an axis: the
+    ones `bin_gaussians` puts on its global list of `big_capacity` slots."""
+    h, w = image_shape
+    x0, x1, y0, y1 = _tile_bounds(projected, tile_size, -(-w // tile_size), -(-h // tile_size))
+    return (projected.valid & ((x1 - x0 + 1 > span) | (y1 - y0 + 1 > span))).sum()
+
+
 def tile_occupancy(
     projected: ProjectedGaussians,
     image_shape: tuple[int, int],

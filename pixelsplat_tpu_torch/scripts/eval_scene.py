@@ -4,9 +4,13 @@
     python -m pixelsplat_tpu_torch.scripts.eval_scene [--model NAME]
 
 The model is one of `config.EXPERIMENTS` at full width (`re10k`, the
-production model with the epipolar transformer, unless named otherwise);
-the scene is `bench.py`'s: two 256x256 context views 0.8 apart along x,
-three target views at x = -0.3, 0, 0.3, normalized intrinsics with focal 1.
+production model with the epipolar transformer, unless named otherwise),
+or `default` (the encoder that `config/main.yaml` composes with no
+experiment: the resnet50 InstanceNorm backbone); the scene is `bench.py`'s:
+two 256x256 context views 0.8 apart along x (three views of
+`re10k_3_view` at x = 0, 0.4, 0.8, the evaluation sampler's midpoint
+second), three target views at x = -0.3, 0, 0.3, normalized intrinsics
+with focal 1.
 The weights and images come from a seeded `torch.Generator`. Run as a
 script (on a CUDA device) it encodes, chooses settings and renders once,
 checks the result, and prints encode and render times from CUDA events
@@ -23,7 +27,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..config import EXPERIMENTS
+from ..config import EXPERIMENTS, default_model
 from ..model.encoder.encoder_epipolar import EncoderEpipolarCfg
 from ..ops.rasterizer.composite import pack_columns
 from ..ops.rasterizer.projection import GaussiansSoA
@@ -31,6 +35,21 @@ from ..ops.rasterizer.render import RenderSettings, project_and_bin
 from ..training.model_wrapper import ModelWrapper
 
 TARGET_VIEWS = 3
+# Context views along x by their number.
+CONTEXT_SHIFTS = {2: (0.0, 0.8), 3: (0.0, 0.4, 0.8)}
+MODELS = sorted(EXPERIMENTS) + ["default"]
+
+
+def model_cfgs(model: str):
+    """(encoder cfg, decoder cfg) of an experiment or of `default`."""
+    return default_model() if model == "default" else EXPERIMENTS[model][0]()
+
+
+def num_gaussians(cfg: EncoderEpipolarCfg, image_shape: tuple[int, int]) -> int:
+    """Gaussians a probabilistic encode of the configuration gives:
+    views x pixels x surfaces x Gaussians per pixel."""
+    h, w = image_shape
+    return cfg.num_context_views * h * w * cfg.num_surfaces * cfg.gaussians_per_pixel
 
 
 def card_line() -> str:
@@ -92,10 +111,11 @@ def init_random_weights(module: torch.nn.Module, generator: torch.Generator) -> 
 
 def scene_batch(
     device, generator: torch.Generator, h: int, w: int,
-    target_shifts=(-0.3, 0.0, 0.3), batch: int = 1,
+    target_shifts=(-0.3, 0.0, 0.3), batch: int = 1, context_shifts=CONTEXT_SHIFTS[2],
 ) -> dict:
-    """`batch` examples of two context views 0.8 apart along x and one
-    target view per entry of `target_shifts`, with random images."""
+    """`batch` examples of one context view per entry of `context_shifts`
+    (two 0.8 apart along x by default) and one target view per entry of
+    `target_shifts`, with random images."""
     k = torch.tensor([[1.0, 0.0, 0.5], [0.0, 1.0, 0.5], [0.0, 0.0, 1.0]], device=device)
 
     def views(shifts):
@@ -110,7 +130,7 @@ def scene_batch(
             "far": torch.full((batch, v), 100.0, device=device),
         }
 
-    return {"context": views([0.0, 0.8]), "target": views(list(target_shifts))}
+    return {"context": views(list(context_shifts)), "target": views(list(target_shifts))}
 
 
 @dataclass
@@ -152,13 +172,16 @@ def make_eval_scene(
     encoder_cfg: Optional[EncoderEpipolarCfg] = None,
     model: str = "re10k",
 ) -> EvalScene:
-    """The scene of experiment `model` (its encoder replaced by
-    `encoder_cfg` when given), with seeded random weights, on `device`."""
-    default_encoder, decoder_cfg = EXPERIMENTS[model][0]()
-    wrapper = ModelWrapper(encoder_cfg or default_encoder, decoder_cfg, device=device)
+    """The scene of experiment `model` (or `default`; its encoder replaced
+    by `encoder_cfg` when given), with seeded random weights, on `device`."""
+    model_encoder, decoder_cfg = model_cfgs(model)
+    encoder_cfg = encoder_cfg or model_encoder
+    wrapper = ModelWrapper(encoder_cfg, decoder_cfg, device=device)
     generator = torch.Generator(device=wrapper.device).manual_seed(seed)
     init_random_weights(wrapper.encoder, generator)
-    batch = scene_batch(wrapper.device, generator, *image_shape)
+    batch = scene_batch(
+        wrapper.device, generator, *image_shape, context_shifts=CONTEXT_SHIFTS[encoder_cfg.num_context_views]
+    )
     return EvalScene(
         wrapper=wrapper,
         batch=batch,
@@ -171,7 +194,7 @@ def make_eval_scene(
 
 def main() -> None:
     parser = argparse.ArgumentParser(description="Run the evaluation scene once on the GPU and time it.")
-    parser.add_argument("--model", default="re10k", choices=sorted(EXPERIMENTS))
+    parser.add_argument("--model", default="re10k", choices=MODELS)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -184,8 +207,9 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     gaussians, settings, color, overflow = scene.run(args.seed)
     torch.cuda.synchronize()
-    h, w = scene.image_shape
-    if gaussians.mean_x.shape[1] != 2 * h * w * 3 or int(overflow) or not bool(torch.isfinite(color).all()):
+    if gaussians.mean_x.shape[1] != num_gaussians(scene.wrapper.encoder_cfg, scene.image_shape) or int(
+        overflow
+    ) or not bool(torch.isfinite(color).all()):
         raise SystemExit(f"FAIL: {gaussians.mean_x.shape[1]} Gaussians, overflow {int(overflow)}, or non-finite images")
     encode_ms = cuda_ms(lambda: scene.encode(scene.batch, False, 0))
     render_ms = cuda_ms(lambda: scene.render(gaussians, settings)) / TARGET_VIEWS

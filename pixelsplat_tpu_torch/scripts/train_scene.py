@@ -6,8 +6,9 @@ helper that takes a few steps, shared by `chip_smoke.py` and
 
 The model is one of `config.EXPERIMENTS` at full width (`re10k` unless
 named otherwise) with its training configuration (MSE + LPIPS, Adam with
-warm-up, clip 0.5; for `re10k` the encoder rematerialized); a batch holds two 256x256 context views and four target views per example,
-as the re10k view sampler gives the trainer. The published LPIPS weights
+warm-up, clip 0.5; for `re10k` the encoder rematerialized); a batch holds
+the model's 256x256 context views (two; three for `re10k_3_view`) and four
+target views per example, as the re10k view sampler gives the trainer. The published LPIPS weights
 are not in the repository, so the LPIPS network takes architecture-correct
 random weights (`allow_random_weights`).
 """
@@ -30,7 +31,7 @@ from ..ops.rasterizer.composite_kernel import composite_core
 from ..ops.rasterizer.projection import pack_gaussians_soa
 from ..ops.rasterizer.render import DepthRenderingMode, depth_colors, project_and_bin
 from ..training.model_wrapper import ModelWrapper, TrainState, batch_to
-from .eval_scene import init_random_weights, scene_batch
+from .eval_scene import CONTEXT_SHIFTS, init_random_weights, scene_batch
 
 TARGET_SHIFTS = (-0.3, 0.1, 0.4, 0.9)
 assert len(TARGET_SHIFTS) == NUM_TARGET_VIEWS
@@ -47,7 +48,8 @@ class TrainScene:
     def batch(self, size: int = 1, seed_offset: int = 0) -> dict:
         generator = torch.Generator(device=self.wrapper.device).manual_seed(self.seed + 100 + seed_offset)
         return scene_batch(
-            self.wrapper.device, generator, *self.image_shape, target_shifts=TARGET_SHIFTS, batch=size
+            self.wrapper.device, generator, *self.image_shape, target_shifts=TARGET_SHIFTS, batch=size,
+            context_shifts=CONTEXT_SHIFTS[self.wrapper.encoder_cfg.num_context_views],
         )
 
     def steps(self, n: int, batch: dict, accumulate: int = 1, step_fn: Optional[Callable] = None) -> list[dict]:

@@ -90,6 +90,46 @@ def test_presets_equal_the_loaded_experiment(experiment):
     assert tuple(got.loss) == loaded.loss
     assert got.gradient_clip_val == loaded.trainer.gradient_clip_val
     assert got.accumulate_grad_batches == loaded.trainer.accumulate_grad_batches
+    assert got.batch_size == loaded.data_loader.train.batch_size
+
+
+@pytest.mark.parametrize("experiment", sorted(pt_config.EXPERIMENTS))
+def test_presets_equal_the_jax_loaded_experiment(experiment):
+    """Each preset against what the JAX package's own loader composes for
+    its experiment, field for field."""
+    want = jx_config.load_config([f"+experiment={experiment}"])
+    model, training = pt_config.EXPERIMENTS[experiment]
+    encoder, decoder = model()
+    assert dataclasses.asdict(encoder) == dataclasses.asdict(want.model.encoder)
+    assert dataclasses.asdict(decoder) == dataclasses.asdict(want.model.decoder)
+    got = training()
+    assert dataclasses.asdict(got.optimizer) == dataclasses.asdict(want.optimizer)
+    assert dataclasses.asdict(got.train) == dataclasses.asdict(want.train)
+    assert [dataclasses.asdict(c) for c in got.loss] == [dataclasses.asdict(c) for c in want.loss]
+    assert (got.gradient_clip_val, got.accumulate_grad_batches, got.batch_size) == (
+        want.trainer.gradient_clip_val, want.trainer.accumulate_grad_batches, want.data_loader.train.batch_size
+    )
+
+
+def test_the_other_presets_set_what_their_experiments_change():
+    """The four presets of the shipped experiments beyond `re10k`, the
+    ablation and the depth loss, and the encoder's default config."""
+    re10k, _ = pt_config.re10k()
+    assert pt_config.EXPERIMENTS["acid"][0]() == pt_config.re10k()
+    three, _ = pt_config.re10k_3_view()
+    assert three.num_context_views == 3 and pt_config.re10k_3_view_training().batch_size == 3
+    assert pt_config.re10k_ablation_no_depth_encoding()[0].epipolar_transformer.num_octaves == 0
+    single, _ = pt_config.re10k_ablation_no_probabilistic_sampling()
+    assert (single.gaussians_per_pixel, single.use_transmittance) == (1, True)
+    for name in ("acid", "re10k_3_view", "re10k_ablation_no_depth_encoding",
+                 "re10k_ablation_no_probabilistic_sampling"):
+        training = pt_config.EXPERIMENTS[name][1]()
+        assert (training.train.remat_encoder, training.accumulate_grad_batches) == (False, 1), name
+    encoder, decoder = pt_config.default_model()
+    want = jx_config.load_config([]).model
+    assert dataclasses.asdict(encoder) == dataclasses.asdict(want.encoder)
+    assert dataclasses.asdict(decoder) == dataclasses.asdict(want.decoder)
+    assert (encoder.backbone.name, encoder.backbone.model, encoder.backbone.num_layers) == ("resnet", "resnet50", 5)
 
 
 def test_num_target_views_preset_equals_the_loaded_sampler():

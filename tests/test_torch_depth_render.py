@@ -12,6 +12,7 @@ f32 rounding, so each render is held to `RENDER_ATOL` times the larger of 1
 and that value (`test_torch_rasterizer.py`).
 """
 
+import dataclasses
 import importlib
 from functools import partial
 from types import SimpleNamespace
@@ -227,6 +228,45 @@ def test_render_adaptive_matches_jax_and_fixed_capacity(seed):
     assert_render_close(got, want)
     # The chosen capacity cuts no list, so the image is the fixed capacity's.
     np.testing.assert_allclose(got, fixed, rtol=0, atol=1e-6)
+
+
+def test_choose_settings_holds_every_big_gaussian():
+    """A deliberate difference from the JAX package: where more Gaussians
+    span more than `span` tiles than the global big list holds, the JAX
+    `choose_settings` keeps `big_capacity` and binning drops the farthest
+    of them; the port's grows the list to hold them all (rounded up to a
+    chunk), so its settings drop nothing and render the image of an
+    unbounded list. Where they fit, it chooses what the JAX one chooses
+    (`test_render_adaptive_matches_jax_and_fixed_capacity`)."""
+    from pixelsplat_tpu_torch.ops.rasterizer import binning as pt_binning
+    from pixelsplat_tpu_torch.ops.rasterizer.render import project_and_bin
+
+    extr, intr, near, far, means, covs, sh, opac = adaptive_scene(seed=1)
+    covs[:, ::2] *= 500.0  # every other Gaussian ~10 px wide at 64x64: beyond 2 tiles
+    kw = dict(capacity=1024, big_capacity=32, chunk=64)
+    chosen_j = jx_adaptive.choose_settings(
+        *(jnp.asarray(a) for a in (extr, intr, near, means, covs, opac)), (64, 64),
+        settings=jx_render.RenderSettings(**kw), capacities=(64, 128, 256),
+    )
+    chosen_p = pt_adaptive.choose_settings(
+        *(t(a) for a in (extr, intr, near, means, covs, opac)), (64, 64),
+        settings=pt_render.RenderSettings(**kw), capacities=(64, 128, 256),
+    )
+    assert chosen_j.big_capacity == kw["big_capacity"] < chosen_p.big_capacity
+    assert chosen_p.big_capacity % kw["chunk"] == 0 and chosen_p.pair_budget >= chosen_j.pair_budget
+    soa = pack_gaussians_soa(t(means[0]), t(covs[0]), t(opac[0]), harmonics=t(sh[0]))
+    camera = (t(extr[0]), t(intr[0]), t(near[0]))
+    projected, tiles = project_and_bin(*camera, soa, image_shape=(64, 64), settings=chosen_p)
+    n_big = int(pt_binning.count_big(projected, (64, 64), 16, chosen_p.span))
+    assert kw["big_capacity"] < n_big <= chosen_p.big_capacity and int(tiles.overflow) == 0
+    as_jax = dataclasses.replace(chosen_p, big_capacity=chosen_j.big_capacity, pair_budget=chosen_j.pair_budget)
+    _, dropped = project_and_bin(*camera, soa, image_shape=(64, 64), settings=as_jax)
+    assert int(dropped.overflow) == n_big - kw["big_capacity"]
+    tensors = [t(a) for a in (extr, intr, near, far, np.zeros((1, 3), np.float32), means, covs, sh, opac)]
+    got = pt_render.render(*tensors[:4], (64, 64), *tensors[4:], settings=chosen_p).numpy()
+    unbounded = dataclasses.replace(chosen_p, big_capacity=means.shape[1], capacity=1024, pair_budget=None)
+    full = pt_render.render(*tensors[:4], (64, 64), *tensors[4:], settings=unbounded).numpy()
+    np.testing.assert_allclose(got, full, rtol=0, atol=1e-6)
 
 
 def test_sample_training_rays_matches_jax():

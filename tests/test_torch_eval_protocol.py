@@ -289,12 +289,12 @@ def test_main_refuses_what_it_cannot_run(port_checkpoint, tmp_path, monkeypatch)
     # `mode=train` runs (`test_torch_fit.py` holds it against the JAX trainer):
     # one step on the fixture made into a train split, from fresh weights.
     root = write_train_root(tmp_path / "re10k")
-    state = pt_main.main(
-        ["+experiment=re10k", "mode=train", f"dataset.roots=[{root}]", *FIXTURE_OVERRIDES, f"dataset.image_shape=[{H},{W}]",
-         *SMALL, "data_loader.train.num_workers=0", "data_loader.train.batch_size=1", "trainer.accumulate_grad_batches=1",
-         "trainer.max_steps=1", "loss=[mse]"],
-        device="cpu",
-    )
+    train_argv = [
+        "+experiment=re10k", "mode=train", f"dataset.roots=[{root}]", *FIXTURE_OVERRIDES, f"dataset.image_shape=[{H},{W}]",
+        *SMALL, "data_loader.train.num_workers=0", "data_loader.train.batch_size=1", "trainer.accumulate_grad_batches=1",
+        "trainer.max_steps=1", "loss=[mse]",
+    ]
+    state = pt_main.main(train_argv, device="cpu")
     assert state.step == 1 and (tmp_path / "outputs" / "checkpoints" / "step_1").is_file()
     with pytest.raises(ValueError, match="checkpointing.load"):
         pt_main.main(PROTOCOL, device="cpu")
@@ -304,8 +304,12 @@ def test_main_refuses_what_it_cannot_run(port_checkpoint, tmp_path, monkeypatch)
         pt_main.main(PROTOCOL + [f"checkpointing.load={tmp_path / 'orbax'}"], device="cpu")
     with pytest.raises(ValueError, match="wandb"):
         pt_main.main(PROTOCOL + ["checkpointing.load=wandb://run:v1"], device="cpu")
-    # Options the port does not run yet load into the config and fail the build.
-    with pytest.raises(NotImplementedError, match="use_transmittance"):
+    # The one option the port does not run yet (ROADMAP queue 1 item 7)
+    # loads into the config and fails the run. `use_transmittance` runs: a
+    # checkpoint of another model fails only its strict load.
+    with pytest.raises(NotImplementedError, match="extended_visualization"):
+        pt_main.main(train_argv + ["train.extended_visualization=true", f"output_dir={tmp_path / 'viz'}"], device="cpu")
+    with pytest.raises(RuntimeError, match="size mismatch"):
         pt_main.main(
             ["+experiment=re10k_ablation_no_probabilistic_sampling", "mode=test", f"checkpointing.load={path}"],
             device="cpu",

@@ -110,10 +110,13 @@ def test_unported_options_raise():
     encoder, decoder = re10k_ablation_no_epipolar_transformer()
     # The epipolar transformer is ported: the production config builds.
     assert hasattr(EncoderEpipolar(dataclasses.replace(encoder, use_epipolar_transformer=True)), "epipolar_transformer")
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        EncoderEpipolar(dataclasses.replace(encoder, compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="predict_opacity"):
-        EncoderEpipolar(dataclasses.replace(encoder, predict_opacity=True))
+    # So are the encoder's other options: the bf16 policy, a predicted
+    # opacity, transmittance opacities and the ResNet trunks.
+    assert EncoderEpipolar(dataclasses.replace(encoder, compute_dtype="bfloat16")).dtype == torch.bfloat16
+    assert hasattr(EncoderEpipolar(dataclasses.replace(encoder, predict_opacity=True)), "to_opacity")
+    assert EncoderEpipolar(dataclasses.replace(encoder, use_transmittance=True)).depth_predictor.use_transmittance
+    with pytest.raises(ValueError, match="compute_dtype"):
+        EncoderEpipolar(dataclasses.replace(encoder, compute_dtype="int8"))
     # Depth renders take the public AoS Gaussians only, as in the JAX package.
     from pixelsplat_tpu_torch.ops.rasterizer.projection import GaussiansSoA
 
