@@ -144,6 +144,31 @@ Phases, each reported on its own lines; any failure exits non-zero:
    read `.torch`); where `.psz` ran, its images within 1/255 of the
    `.torch` route's; the data ms per scene on each route.
 
+11. distributed: two ranks sharing the card over gloo
+   (`scripts/distributed_step.py`, spawned with a FileStore under the
+   gitignored `build/`), `re10k` at full width with the same seeded weights
+   on both: one data-parallel training step from step 0 (batch 1 per rank,
+   2 context + 4 target views, each rank its own example and uniforms),
+   rank 0's weights, averaged gradients and loss parts against one process
+   taking both examples as `accumulate=2`, the two ranks' weights equal bit
+   for bit, K1 and K2 exactly 4 times per rank; the evaluation scene's 3
+   target views split over the ranks (padded to 4) with
+   `parallel/render.py::render_views_sharded`, equal bit for bit to the
+   plain decoder on rank 0's Gaussians, K1 exactly twice per rank. Prints
+   step ms, the all-reduce's ms and MiB and peak memory per rank, labelled
+   two processes sharing one card over gloo. Then `main.main` `mode=train`
+   in this process under RANK=0 WORLD_SIZE=1 LOCAL_RANK=0 and a free
+   MASTER_PORT, over NCCL: the recipe 2 steps on the fixture's train split;
+   `rank=0/1` on the mode line, the NCCL group up during the run and
+   destroyed after, the first step's loss bit for bit `[train_protocol]`
+   run A's, rank 0's checkpoint, launches as in `[train_protocol]`.
+12. eval_tools: `scripts/generate_evaluation_index.py` over the fixture on
+   the card and on the CPU (the same index), then
+   `scripts/compute_metrics.py` over the PNGs that `[eval_protocol]` wrote:
+   PSNR and SSIM per view against `Trainer.test`'s on the float renders,
+   within a bound on what 8-bit rounding can move them (derived above
+   `eval_tools_phase`), printed beside the measured difference.
+
 Every kernel's launch count is set to 0 just before each path is driven
 and read just after it. The run ends with the card line, a JSON record of
 the five kernels and {"ok": true, "device": {...}}.
@@ -695,6 +720,8 @@ EVAL_REPLAY_ATOL = 1e-5
 # default, on during this check) SSIM would be off by ~1e-3.
 EVAL_PSNR_ATOL_DB = 1e-4
 EVAL_SSIM_ATOL = 1e-6
+# Where `[eval_protocol]` leaves its PNGs for `[eval_tools]` (gitignored).
+EVAL_TOOLS_DIR = ROOT / "build" / "chip_smoke" / "eval_tools"
 
 
 def eval_protocol_phase(torch, kernels) -> dict:
@@ -702,7 +729,10 @@ def eval_protocol_phase(torch, kernels) -> dict:
     `re10k` at full width, the fixture, the configured data workers (forked
     after CUDA is initialised), a checkpoint that
     `scripts/write_checkpoint.py` writes from `init_state` with seeded
-    weights. Returns the kernels' launch counts of the run."""
+    weights. Returns the kernels' launch counts of the run, the summary,
+    and each scene's ground truth and float renders (its PNGs are copied to
+    `EVAL_TOOLS_DIR`)."""
+    import shutil
     import tempfile
 
     from PIL import Image
@@ -833,6 +863,15 @@ def eval_protocol_phase(torch, kernels) -> dict:
               f"SSIM {card_metrics[1]:.8f} vs {cpu_metrics[1]:.8f}")
         if not (psnr_err <= EVAL_PSNR_ATOL_DB and ssim_err <= EVAL_SSIM_ATOL):
             fail(f"eval_protocol: card vs CPU metrics off by {psnr_err:.3g} dB PSNR, {ssim_err:.3g} SSIM")
+        # What `[eval_tools]` scores again: the PNGs, and each scene's ground
+        # truth and float renders as `Trainer.test` scored them.
+        shutil.rmtree(EVAL_TOOLS_DIR, ignore_errors=True)
+        shutil.copytree(results, EVAL_TOOLS_DIR / "frames")
+        renders = [
+            dict(gt=e["batch"]["target"]["image"][0].cpu(), color=d["color"][0].cpu(),
+                 index=e["batch"]["target"]["index"][0].tolist())
+            for e, d in zip(seen["encode"], seen["decode"])
+        ]
         del reference, gaussians, color, seen
 
         # The data path alone: the test loader with the configured workers
@@ -855,7 +894,7 @@ def eval_protocol_phase(torch, kernels) -> dict:
           f"probe included) | data ms per scene {data_ms[cfg.data_loader.test.num_workers]:.1f} with "
           f"{cfg.data_loader.test.num_workers} workers, {data_ms[0]:.1f} inline | peak memory {peak_gib:.2f} GiB "
           f"({held_gib:.2f} GiB held by earlier phases) | main {run_s:.1f} s")
-    return {"launches": launches}
+    return {"launches": launches, "renders": renders, "summary": summary}
 
 
 # The training phase: the CLI's `mode=train` on the fixture made into a
@@ -1059,6 +1098,7 @@ def train_protocol_phase(torch, kernels) -> dict:
             result["launches"]["train_protocol re10k"] = launches
             trainer = captured_a.trainer
             train, val = logged(out)
+            result["run_a_first_loss"] = train[1]["loss/total"]
             phase("train_protocol", f"run A: main returned step {state_a.step} in {seconds:.1f} s; step tracker "
                   f"{trainer.step_tracker.get_step()}; checkpoints "
                   f"{sorted(p.name for p in (out / 'checkpoints').iterdir())}; validation "
@@ -1635,6 +1675,265 @@ def native_phase(torch, kernels) -> dict:
     return dict(launches=launches, route=route, data_ms={f"{n} {wk}": v for (n, wk), v in data_ms.items()})
 
 
+# `[distributed]`: two ranks sharing the one card over gloo
+# (`scripts/distributed_step.py`), then `main` in this process over NCCL.
+DIST_WORLD = 2
+DIST_DIR = ROOT / "build" / "chip_smoke" / "distributed"
+# Rank 0's weights after one step against one process taking the same two
+# examples as accumulated micro-batches. Adam's first update moves each
+# weight by lr0 * g / (|g| + eps), |.| < lr0 (lr0 = 1.5e-4 / 2000 warm-up
+# steps = 7.5e-8 for `re10k`), so any two gradients give weights within
+# 2 lr0; that is the bound, and the gradients are held on their own:
+# per tensor relative to its largest entry, the averaged and clipped
+# gradients differ only in the order of atomic adds (K2's, cuDNN's weight
+# gradients) in the two backward passes of each example.
+DIST_GRAD_RTOL = 1e-3
+# The loss parts: the same forward on the same inputs, averaged as (a + b) / 2
+# on both sides.
+DIST_LOSS_RTOL = 1e-6
+NCCL_ARGV_STEPS = 2
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def distributed_phase(torch, kernels, run_a_first_loss: float) -> dict:
+    """Two gloo ranks on the one card: one data-parallel step of `re10k` at
+    full width (batch 1 each, 2 context + 4 target views, own uniforms)
+    against one process's `accumulate=2` step, the replicas bit for bit,
+    and the evaluation scene's 3 target views rendered split over the ranks
+    against the plain decoder bit for bit. Then `main` `mode=train` in this
+    process under RANK=0 WORLD_SIZE=1 over NCCL, 2 steps of the recipe on
+    the fixture, its first loss against `[train_protocol]` run A's."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pixelsplat_tpu_torch import main as cli
+    from pixelsplat_tpu_torch.config import NUM_TARGET_VIEWS, load_config
+    from pixelsplat_tpu_torch.scripts import distributed_step
+    from pixelsplat_tpu_torch.scripts.eval_scene import card_line
+    from pixelsplat_tpu_torch.scripts.train_fixture import FIXTURE_OVERRIDES, write_train_root
+
+    card = card_line()
+    result = {"launches": {}}
+    t0 = time.perf_counter()
+    try:
+        ranks = distributed_step.launch(DIST_DIR, world=DIST_WORLD, backend="gloo", seed=SEED, model=RE10K)
+    except RuntimeError as exc:
+        fail(f"distributed: {exc}")
+    ranks_s = time.perf_counter() - t0
+    for r in ranks:
+        phase("distributed", f"rank {r['rank']}/{r['world']} ({r['backend']} on {r['device']}): step parts "
+              f"{({k: round(v, 6) for k, v in r['parts'].items()})}, launches step {r['step_launches']} render "
+              f"{r['render_launches']}, render {r['render_views']} overflow {r['render_overflow']}, replica equal "
+              f"to rank 0's: {r['replica_equal_to_rank0']}")
+        if r["backend"] != "gloo" or r["world"] != DIST_WORLD:
+            fail(f"distributed: rank {r['rank']} ran {r['backend']} over {r['world']}")
+        if r["step_launches"] != {"composite_fwd": NUM_TARGET_VIEWS, "composite_bwd": NUM_TARGET_VIEWS}:
+            fail(f"distributed: rank {r['rank']} step launches {r['step_launches']}, expected {NUM_TARGET_VIEWS} each")
+        if r["render_launches"] != {"composite_fwd": 2, "composite_bwd": 0}:
+            fail(f"distributed: rank {r['rank']} render launches {r['render_launches']}, expected 2 composite_fwd")
+        if not r["replica_equal_to_rank0"] or r["render_overflow"] or r["render_views"] != [1, 3, 3, 256, 256]:
+            fail(f"distributed: rank {r['rank']}: {r}")
+        if not all(math.isfinite(v) for v in r["parts"].values()) or r["parts"]["train/overflow_pairs"]:
+            fail(f"distributed: rank {r['rank']} parts {r['parts']}")
+    for path in ("step", "render"):
+        result["launches"][f"distributed {path} (2 ranks, gloo)"] = {
+            name: sum(r[f"{path}_launches"].get(name, 0) for r in ranks) for name in kernels
+        }
+    reference = distributed_step.one_process(DIST_DIR, world=DIST_WORLD, seed=SEED, model=RE10K)
+    bound = 2 * reference["step0_lr"]
+    loss_errs = {k: abs(ranks[0]["parts"][k] - v) / max(abs(v), 1e-30) for k, v in reference["parts"].items()}
+    render = reference["render"]
+    phase("distributed", f"against one process (accumulate={DIST_WORLD} on the same two examples and uniforms): "
+          f"weights max |err| {reference['param_max_abs_err']:.3g} (bound 2 lr0 = {bound:.3g}), averaged "
+          f"gradients max err / tensor max {reference['grad_max_rel_err']:.3g} (tol {DIST_GRAD_RTOL}) over "
+          f"{reference['tensors']} tensors, loss parts max rel err {max(loss_errs.values()):.3g} (tol "
+          f"{DIST_LOSS_RTOL}); sharded render against the plain decoder: "
+          f"{'equal bit for bit' if render['equal'] else 'DIFFERENT'} (max |err| {render['max_abs_err']:.3g})")
+    if not reference["param_max_abs_err"] <= bound or not reference["grad_max_rel_err"] <= DIST_GRAD_RTOL:
+        fail(f"distributed: two ranks off one process: {reference}")
+    if not max(loss_errs.values()) <= DIST_LOSS_RTOL:
+        fail(f"distributed: loss parts off one process's: {loss_errs}")
+    if not render["equal"] or render["overflow"] or render["shape"] != [1, 3, 3, 256, 256]:
+        fail(f"distributed: the sharded render differs from the plain decoder's: {render}")
+    label = "two processes sharing one card over gloo"
+    for r in ranks:
+        ms = r["parts_ms"]
+        phase("timing", f"distributed | {card} | {label} | rank {r['rank']}: step ms {r['step_ms'][0]:.1f} (first, "
+              f"from step 0) then {r['step_ms'][1]:.1f}; second step forward {ms['forward'][1]:.1f}, backward "
+              f"{ms['backward'][1]:.1f}, all-reduce {ms['all_reduce'][1]:.2f} (first {ms['all_reduce'][0]:.2f}) "
+              f"of {r['reduced_bytes'] / 2**20:.1f} MiB, optimizer {ms['optimizer'][1]:.2f} (CUDA events); "
+              f"sharded render {r['render_ms']:.1f} ms; peak memory {r['peak_gib']:.2f} GiB")
+    result["gloo"] = dict(ranks=ranks, reference=reference, seconds=ranks_s)
+
+    # `main` over NCCL, one rank, as torchrun's environment names it.
+    port = free_port()
+    wiring = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in wiring}
+    tf32 = torch.backends.cudnn.allow_tf32
+    seen = {}
+    build = cli.build_everything
+
+    def watched_build(*args, **kwargs):
+        seen.update(initialized=dist.is_initialized(), backend=dist.is_initialized() and dist.get_backend(),
+                    world=dist.is_initialized() and dist.get_world_size(), rank_args=args[2:])
+        return build(*args, **kwargs)
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            root = write_train_root(tmp / "re10k")
+            out = tmp / "outputs"
+            argv = TRAIN_PROTOCOL_ARGV + [f"dataset.roots=[{root}]", *FIXTURE_OVERRIDES, f"output_dir={out}",
+                                          f"trainer.max_steps={NCCL_ARGV_STEPS}"]
+            cfg = load_config(argv)
+            os.environ.update(wiring)
+            torch.backends.cudnn.allow_tf32 = True  # as [train_protocol] ran run A
+            cli.build_everything = watched_build
+            reset_launches(kernels)
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                state = cli.main(argv)
+            seconds = time.perf_counter() - t0
+            launches = launch_counts(kernels)
+            result["launches"]["distributed main (NCCL, 1 rank)"] = launches
+            train, _ = logged(out)
+            mode_line = next((x for x in printed.getvalue().splitlines() if "mode=train" in x), "")
+            first_loss = train[1]["loss/total"]
+            phase("distributed", f"NCCL: main {' '.join(TRAIN_PROTOCOL_ARGV)} trainer.max_steps={NCCL_ARGV_STEPS} "
+                  f"under {' '.join(f'{k}={v}' for k, v in wiring.items())}: mode line {mode_line.strip()!r}; group "
+                  f"during the run {seen}; after: {'up' if dist.is_initialized() else 'destroyed'}; returned step "
+                  f"{state.step} in {seconds:.1f} s; checkpoints {sorted(p.name for p in (out / 'checkpoints').iterdir())}; "
+                  f"first step's loss {first_loss!r} against run A's {run_a_first_loss!r}; launches {launches}")
+            if "rank=0/1" not in mode_line or seen.get("backend") != "nccl" or seen.get("world") != 1:
+                fail(f"distributed: NCCL run's group {seen}, mode line {mode_line!r}")
+            if dist.is_initialized():
+                fail("distributed: main left its NCCL group up")
+            if state.step != NCCL_ARGV_STEPS or sorted(p.name for p in (out / "checkpoints").iterdir()) != [
+                f"step_{NCCL_ARGV_STEPS}"
+            ]:
+                fail(f"distributed: NCCL run ended at step {state.step}")
+            check_logged("NCCL", train, range(1, NCCL_ARGV_STEPS + 1))
+            batch = cfg.data_loader.train.batch_size
+            per_view = NCCL_ARGV_STEPS * batch * NUM_TARGET_VIEWS
+            val_steps = validation_steps(0, NCCL_ARGV_STEPS, cfg.trainer.val_check_interval)
+            if launches != {**{k: 0 for k in kernels}, "composite_fwd": per_view + len(val_steps) * 2 * NUM_TARGET_VIEWS,
+                            "composite_bwd": per_view}:
+                fail(f"distributed: NCCL run launches {launches}")
+            if first_loss != run_a_first_loss:
+                # Only if two runs without the environment differ too: held to their difference.
+                for k in wiring:
+                    os.environ.pop(k, None)
+                again = tmp / "again"
+                cli.main(argv[:-2] + [f"output_dir={again}", f"trainer.max_steps={NCCL_ARGV_STEPS}"])
+                spread = abs(logged(again)[0][1]["loss/total"] - run_a_first_loss)
+                phase("distributed", f"NCCL: first loss differs by {abs(first_loss - run_a_first_loss):.3g}; two "
+                      f"runs without the environment differ by {spread:.3g}")
+                if not abs(first_loss - run_a_first_loss) <= spread:
+                    fail("distributed: the NCCL run's first loss differs from run A's beyond two plain runs' spread")
+            result["nccl"] = dict(first_loss=first_loss, seconds=seconds, launches=launches)
+    finally:
+        cli.build_everything = build
+        torch.backends.cudnn.allow_tf32 = tf32
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return result
+
+
+# `[eval_tools]`: the evaluation index over the fixture on the card and on
+# the CPU, and `compute_metrics` over `[eval_protocol]`'s PNGs against the
+# float renders `Trainer.test` scored.
+#
+# The PNG of a render c holds q = floor(255 clamp(c, 0, 1)) / 255, so with
+# e = clamp(c) - q in [0, 1/255) per value:
+# - PSNR (both sides clamp): MSE_q = MSE + 2 mean(d e) + mean(e^2) with
+#   d = gt - clamp(c), and |mean(d e)| <= sqrt(MSE) / 255, so PSNR moves by
+#   at most max(10 log10(1 + (2 sqrt(MSE) / 255 + 1 / 255^2) / MSE),
+#   -10 log10(1 - 2 / (255 sqrt(MSE)))) dB, plus EVAL_TOOLS_FLOAT_SLACK;
+# - SSIM (not clamped on the `Trainer.test` side): to first order in the
+#   change c - q, |dSSIM| <= sum_p |dSSIM/dc_p| max_p |c_p - q_p|, taken at
+#   the float render by autograd; EVAL_TOOLS_SSIM_MARGIN covers the second
+#   order.
+EVAL_TOOLS_FLOAT_SLACK = 1e-4
+EVAL_TOOLS_SSIM_MARGIN = 1.5
+
+
+def eval_tools_phase(torch, renders: list) -> dict:
+    import numpy as np
+
+    from pixelsplat_tpu_torch.evaluation.metrics import compute_psnr, compute_ssim
+    from pixelsplat_tpu_torch.scripts import compute_metrics, generate_evaluation_index
+    from pixelsplat_tpu_torch.scripts.eval_scene import card_line
+
+    fixture_argv = [f"dataset.roots=[{FIXTURE / 're10k'}]", "data_loader.test.num_workers=0",
+                    *generate_evaluation_index.FIXTURE_OVERRIDES]
+    t0 = time.perf_counter()
+    indices = {}
+    for device in ("cuda", "cpu"):
+        path = generate_evaluation_index.main(
+            fixture_argv + [f"index_generator.output_path={EVAL_TOOLS_DIR / f'index_{device}'}"], device=device)
+        indices[device] = json.loads(path.read_text())
+    index_s = time.perf_counter() - t0
+    phase("eval_tools", f"generate_evaluation_index over the fixture ({' '.join(generate_evaluation_index.FIXTURE_OVERRIDES)}): "
+          f"card {indices['cuda']}; CPU {'the same' if indices['cuda'] == indices['cpu'] else indices['cpu']}")
+    if indices["cuda"] != indices["cpu"] or not all(indices["cuda"].values()) or len(indices["cuda"]) != 2:
+        fail(f"eval_tools: the index on the card differs from the CPU's or misses a scene: {indices}")
+
+    argv = EVAL_PROTOCOL_ARGV[:1] + EVAL_PROTOCOL_ARGV[2:] + [
+        "data_loader.test.num_workers=0",
+        f"evaluation.methods=[{{name: pixelSplat, key: ours, path: {EVAL_TOOLS_DIR / 'frames'}}}]",
+        f"output_metrics_path={EVAL_TOOLS_DIR / 'metrics.json'}",
+    ]
+    t0 = time.perf_counter()
+    computer = compute_metrics.main(argv, device="cuda")
+    metrics_s = time.perf_counter() - t0
+    scores = computer.scores["ours"]
+    want = {"psnr": [], "ssim": []}
+    bounds = {"psnr": [], "ssim": []}
+    for r in renders:
+        gt, color = r["gt"].cuda(), r["color"].cuda()
+        q = (color.clamp(0, 1) * 255).to(torch.uint8).float() / 255
+        want["psnr"] += compute_psnr(gt, color).tolist()
+        mse = ((gt - color.clamp(0, 1)) ** 2).mean(dim=(1, 2, 3)).double()
+        up = 10 * torch.log10(1 + (2 * mse.sqrt() / 255 + 1 / 255**2) / mse)
+        down = -10 * torch.log10((1 - 2 / (255 * mse.sqrt())).clamp(min=1e-12))
+        bounds["psnr"] += (torch.maximum(up, down) + EVAL_TOOLS_FLOAT_SLACK).tolist()
+        c = color.clone().requires_grad_()
+        ssim = compute_ssim(gt, c)
+        want["ssim"] += ssim.tolist()
+        (grad,) = torch.autograd.grad(ssim.sum(), c)
+        step = float((color - q).abs().max())
+        bounds["ssim"] += (EVAL_TOOLS_SSIM_MARGIN * grad.abs().sum(dim=(1, 2, 3)) * step + 1e-6).tolist()
+    errs = {k: [abs(a - b) for a, b in zip(scores[k], want[k])] for k in want}
+    phase("eval_tools", f"compute_metrics over {len(scores['psnr'])} PNGs of [eval_protocol]: PSNR per view "
+          f"{[round(x, 4) for x in scores['psnr']]} against Trainer.test's {[round(x, 4) for x in want['psnr']]}: "
+          f"|diff| {[float(f'{e:.3g}') for e in errs['psnr']]} within {[float(f'{b:.3g}') for b in bounds['psnr']]} dB; "
+          f"SSIM |diff| {[float(f'{e:.3g}') for e in errs['ssim']]} within {[float(f'{b:.3g}') for b in bounds['ssim']]}")
+    if len(scores["psnr"]) != len(want["psnr"]) or any(
+        not e <= b for k in errs for e, b in zip(errs[k], bounds[k])
+    ):
+        fail(f"eval_tools: compute_metrics off Trainer.test beyond 8-bit rounding: {errs} vs {bounds}")
+    if any(not math.isfinite(x) for x in scores["psnr"] + scores["ssim"]):
+        fail(f"eval_tools: non-finite metrics {scores}")
+    phase("timing", f"eval_tools | {card_line()} | generate_evaluation_index card + CPU {index_s:.1f} s | "
+          f"compute_metrics {metrics_s:.1f} s for {len(scores['psnr'])} views")
+    return dict(psnr_err=errs["psnr"], ssim_err=errs["ssim"], bounds=bounds, index=indices["cuda"])
+
+
 def main() -> None:
     if not (ROOT / "pixelsplat_tpu_torch").is_dir():
         fail("pixelsplat_tpu_torch/ not found beside chip_smoke.py: run from a checkout")
@@ -1710,12 +2009,19 @@ def main() -> None:
     # 10. the .psz route through the CLI, three context views
     native = native_phase(torch, kernels)
 
+    # 11. across processes: two gloo ranks on the card, then main over NCCL
+    distributed = distributed_phase(torch, kernels, training["run_a_first_loss"])
+
+    # 12. the evaluation tools on the fixture and on [eval_protocol]'s PNGs
+    eval_tools_phase(torch, protocol["renders"])
+
     by_path = {"tools": {name: smoke_launches[name] + tools["launches"][name] for name in kernels}}
     by_path["eval_protocol"] = protocol["launches"]
     by_path.update(training["launches"])
     by_path.update(experiments["launches"])
     by_path["bf16"] = bf16["launches"]
     by_path["native re10k_3_view eval_protocol"] = native["launches"]
+    by_path.update(distributed["launches"])
     for model, r in results.items():
         for path, counts in r["launches"].items():
             by_path[f"{model} {path}"] = counts

@@ -24,6 +24,7 @@ from torch import nn
 
 from ...geometry.projection import sample_image_grid
 from ...ops.rasterizer.projection import GaussiansSoA
+from ...utils.shape_checks import check_context
 from .. import precision
 from ..types import Gaussians
 from .backbone.dino import BackboneDino, BackboneDinoCfg
@@ -128,6 +129,7 @@ class EncoderEpipolar(nn.Module):
         `Gaussians`. `visualization_dump`, when given, receives the depths,
         scales, rotations and the epipolar sampling.
         """
+        check_context(context)
         cfg = self.cfg
         image = context["image"]
         b, v, _, h, w = image.shape

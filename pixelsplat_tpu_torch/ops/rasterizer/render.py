@@ -17,6 +17,7 @@ from typing import Literal, Optional
 import torch
 
 from ...geometry.projection import inverse_se3
+from ...utils.shape_checks import check_cameras, check_gaussians
 from .binning import TileLists, bin_gaussians
 from .composite import composite_tiles
 from .projection import (
@@ -137,6 +138,9 @@ def render(
     With `return_overflow`, also returns the (b,) count of (gaussian,
     tile) pairs the binner dropped.
     """
+    check_cameras(extrinsics, intrinsics, near, far, batch_dims=1)
+    if use_sh:
+        check_gaussians(gaussian_means, gaussian_covariances, gaussian_sh_coefficients, gaussian_opacities)
     images, overflows = [], []
     for i in range(extrinsics.shape[0]):
         sh_or_colors = gaussian_sh_coefficients[i]

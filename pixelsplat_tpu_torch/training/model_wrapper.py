@@ -11,6 +11,16 @@ choose render settings for the scene from its tile occupancy, render), and
 Where the JAX package threads an explicit parameter tree through pure
 functions, the parameters here live in `self.encoder` and a train step
 updates them in place; `TrainState.params` names the same tensors.
+
+Data parallelism. Where the JAX step is one program over a device mesh
+(`make_jit_train_step`: `shard_map`, a `pmean` of the gradients and of the
+loss parts), each process here runs the step on its own share of the
+global batch, then averages the gradients and the parts over the default
+process group (`parallel/mesh.py::all_reduce_mean_`) before the clip and
+Adam, so every rank applies the same update. `init_state` and
+`load_state_dict` broadcast rank 0's weights (and Adam's moments on a
+resume), so the replicas start equal. Without a group the step is the
+one-process step.
 """
 
 from __future__ import annotations
@@ -21,8 +31,10 @@ from pathlib import Path
 from typing import Callable, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from ..interop.pretrained import init_backbone_from_pretrained
 from ..loss import get_losses
 from ..model.decoder.decoder_splatting import DecoderSplatting, DecoderSplattingCfg
 from ..model.encoder.data_shim import get_data_shim
@@ -31,6 +43,8 @@ from ..model.types import Gaussians
 from ..ops.rasterizer.adaptive import choose_settings
 from ..ops.rasterizer.projection import GaussiansSoA
 from ..ops.rasterizer.render import RenderSettings
+from ..parallel.distributed import is_rank_zero
+from ..parallel.mesh import all_reduce_mean_, broadcast_
 from ..utils.benchmarker import Benchmarker
 from .optimizer import Optimizer, OptimizerCfg
 
@@ -79,6 +93,19 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
             "passes device='cpu'"
         )
     return device
+
+
+def effective_accumulate(per_rank_batch: int, accumulate: int) -> int:
+    """`accumulate` where it divides the per-rank batch, else its largest
+    divisor that is at most `accumulate` (the JAX `make_jit_train_step`'s
+    rule: a data-parallel split already shrinks each rank's batch, so the
+    re10k recipe's batch 7 accumulates 7 times on one card and not at all
+    on 7)."""
+    if per_rank_batch % accumulate == 0:
+        return accumulate
+    eff = max(d for d in range(1, per_rank_batch + 1) if per_rank_batch % d == 0 and d <= accumulate)
+    print(f"accumulate_grad_batches={accumulate} does not divide per-device batch {per_rank_batch}; using {eff}")
+    return eff
 
 
 def _slice_batch(batch: dict, lo: int, hi: int) -> dict:
@@ -131,8 +158,22 @@ class ModelWrapper:
 
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
-        """A fresh optimizer over the encoder's current weights, at step 0."""
+        """A fresh optimizer over the encoder's current weights, at step 0.
+
+        The backbone's pretrained trunks are copied in first when their
+        exported weights are on disk (`interop/pretrained.py`), as the JAX
+        `init_state` grafts them; in a process group every rank then takes
+        rank 0's weights."""
+        n_grafted = init_backbone_from_pretrained(self.encoder, self.encoder_cfg)
+        if is_rank_zero():
+            if n_grafted:
+                print(f"initialized {n_grafted} backbone tensors from pretrained DINO weights")
+            else:
+                print("no pretrained DINO weights on disk: the backbone keeps its initialization")
         params = dict(self.encoder.named_parameters())
+        if dist.is_initialized():
+            with torch.no_grad():
+                broadcast_(params.values(), src=0)
         optimizer = Optimizer(params.values(), self.optimizer_cfg, self.gradient_clip_val)
         return TrainState(params=params, optimizer=optimizer, step=0)
 
@@ -145,9 +186,20 @@ class ModelWrapper:
         }
 
     def load_state_dict(self, state: TrainState, payload: dict) -> TrainState:
+        """Restore a checkpoint; in a process group, every rank then takes
+        rank 0's weights and Adam moments (Adam's step counts, host
+        tensors, come from the same checkpoint on every rank)."""
         self.encoder.load_state_dict(payload["params"], strict=True)
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
+        if dist.is_initialized():
+            adam = state.optimizer.adam.state
+            tensors = list(state.params.values()) + [
+                v for p in state.params.values() for v in adam.get(p, {}).values()
+                if torch.is_tensor(v) and v.device == p.device
+            ]
+            with torch.no_grad():
+                broadcast_(tensors, src=0)
         return state
 
     def loss_fn(
@@ -210,7 +262,12 @@ class ModelWrapper:
     def train_step(self, state: TrainState, batch: dict, generator=None, u=None):
         return self.make_train_step()(state, batch, generator=generator, u=u)
 
-    def make_train_step(self, accumulate: int = 1, benchmarker: Optional[Benchmarker] = None) -> Callable:
+    def make_train_step(
+        self,
+        accumulate: int = 1,
+        benchmarker: Optional[Benchmarker] = None,
+        group: Optional[dist.ProcessGroup] = None,
+    ) -> Callable:
         """`step_fn(state, batch, generator=None, u=None)` -> (state, parts).
 
         One optimizer update: gradients of `loss_fn`, global-norm clip, Adam
@@ -218,10 +275,19 @@ class ModelWrapper:
         `accumulate` > 1 splits the batch into that many micro-batches along
         its first axis and applies one update to the mean of their
         gradients; every loss term is a per-example mean, so that equals the
-        large batch's gradient, and clip and Adam see only the mean. With a
-        `benchmarker`, each micro-batch's forward and backward and the
-        optimizer's update are timed on the device clock
-        (`Benchmarker.time_device`: "forward", "backward", "optimizer").
+        large batch's gradient, and clip and Adam see only the mean.
+
+        In a process group (`group`, else the default group when one
+        exists) `batch` is this rank's share of the global batch: the
+        rank's mean gradient and its loss parts are averaged over the group
+        (`all_reduce_mean_`) before the clip, so every rank applies the same
+        update and returns the global batch's parts. `step_fn.reduced_bytes`
+        holds the bytes the last all-reduce moved.
+
+        With a `benchmarker`, each micro-batch's forward and backward, the
+        all-reduce and the optimizer's update are timed on the device clock
+        (`Benchmarker.time_device`: "forward", "backward", "all_reduce",
+        "optimizer").
         """
         timed = benchmarker.time_device if benchmarker is not None else (lambda tag: nullcontext())
 
@@ -250,11 +316,18 @@ class ModelWrapper:
                 inv = 1.0 / accumulate
                 torch._foreach_mul_([p.grad for p in params], inv)
                 parts = {k: v * inv for k, v in parts.items()}
+            if dist.is_initialized() or group is not None:
+                names = list(parts)
+                packed = torch.stack([parts[k].float() for k in names])
+                with timed("all_reduce"):
+                    step_fn.reduced_bytes = all_reduce_mean_([p.grad for p in params] + [packed], group)
+                parts = dict(zip(names, packed.unbind()))
             with timed("optimizer"):
                 state.optimizer.step(state.step)
             state.step += 1
             return state, parts
 
+        step_fn.reduced_bytes = 0
         return step_fn
 
     # ------------------------------------------------------------------

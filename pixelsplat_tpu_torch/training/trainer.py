@@ -17,10 +17,22 @@ checkpoint save; `fit` writes the times to `output_dir/benchmark.json` and
 the device's memory stats to `output_dir/peak_memory.json`, as `test` does
 under its output path.
 
+Across processes (`torch.distributed`, one process per GPU) every rank
+runs every step on its own stream of the data module (built with the
+rank and world size) and the step averages the gradients over the group;
+only rank 0 logs, validates, saves checkpoints and writes `benchmark.json`
+and `peak_memory.json`, as the JAX `fit` gates them on `process_index`.
+`test` splits the scenes over the ranks by chunk, as the data module does,
+and each rank writes its own scenes' PNGs and returns the summary of its
+own scenes, as every process of the JAX `Trainer.test` does (no gather);
+rank 0 writes the benchmark files.
+
 Randomness. A step's depth-sampling uniforms come from one
 `torch.Generator` on the wrapper's device, seeded `seed + 7` anew at every
-`fit`, resumed or not, as the JAX package splits `PRNGKey(seed + 7)` once
-per step; validation encodes from a generator seeded with the step, as the
+`fit` (on rank r, `parallel.distributed.rank_seed(seed + 7, r)`: rank 0
+draws what one process draws), resumed or not, as the JAX package splits
+`PRNGKey(seed + 7)` once per step and folds the device's index into it;
+validation encodes from a generator seeded with the step, as the
 JAX package's `PRNGKey(step)`; the test protocol's uniforms come from a
 generator seeded `seed + 31`, one draw per scene. The two packages draw
 different numbers from the same seeds. The train stream is the data
@@ -51,13 +63,14 @@ from PIL import Image
 from ..dataset.data_module import DataModule
 from ..evaluation.lpips import get_lpips, load_lpips
 from ..evaluation.metrics import compute_psnr, compute_ssim
+from ..parallel.distributed import is_rank_zero, rank_and_world, rank_seed
 from ..utils.benchmarker import Benchmarker
 from ..utils.local_logger import LocalLogger
 from ..utils.step_tracker import StepTracker
 from ..visualization.annotation import add_label
 from ..visualization.layout import add_border, hcat, vcat
 from .checkpoint import load_checkpoint, save_checkpoint
-from .model_wrapper import CheckpointingCfg, ModelWrapper, TrainState, batch_to
+from .model_wrapper import CheckpointingCfg, ModelWrapper, TrainState, batch_to, effective_accumulate
 
 # Directory under `test.output_path` that holds this package's results.
 RESULTS_NAME = "pixelsplat_tpu"
@@ -133,8 +146,11 @@ class Trainer:
             state = wrapper.load_state_dict(state, load_checkpoint(resume_from))
             print(f"Resumed from {resume_from} at step {state.step}")
 
-        step_fn = wrapper.make_train_step(accumulate=self.cfg.accumulate_grad_batches, benchmarker=bench)
-        generator = torch.Generator(device=wrapper.device).manual_seed(self.seed + 7)
+        rank, _ = rank_and_world()
+        rank_zero = rank == 0
+        accumulate = effective_accumulate(len(batch["context"]["image"]), self.cfg.accumulate_grad_batches)
+        step_fn = wrapper.make_train_step(accumulate=accumulate, benchmarker=bench)
+        generator = torch.Generator(device=wrapper.device).manual_seed(rank_seed(self.seed + 7, rank))
         every = self.checkpointing.every_n_train_steps
         step = state.step
         val_iter: Optional[Iterator] = None
@@ -146,18 +162,18 @@ class Trainer:
             if self.step_tracker is not None:
                 self.step_tracker.set_step(step)
 
-            if step % self.cfg.log_every_n_steps == 0:
+            if rank_zero and step % self.cfg.log_every_n_steps == 0:
                 host = {k: float(v) for k, v in parts.items()}
                 self.logger.log_metrics(host, step=step)
                 print(f"step {step}; " + "; ".join(f"{k}={v:.4f}" for k, v in host.items()))
 
-            if every > 0 and step % every == 0:
+            if rank_zero and every > 0 and step % every == 0:
                 with bench.time("checkpoint"):
                     path = save_checkpoint(self.output_dir / "checkpoints", step, wrapper.state_dict(state))
                 print(f"Saved checkpoint {path}")
                 self.logger.log_model(path, step=step)
 
-            if self.cfg.val_check_interval > 0 and step % self.cfg.val_check_interval == 0:
+            if rank_zero and self.cfg.val_check_interval > 0 and step % self.cfg.val_check_interval == 0:
                 if val_iter is None:
                     val_iter = iter(self.data_module.val_dataloader())
                 try:
@@ -171,12 +187,13 @@ class Trainer:
             with bench.time("data"):
                 batch = next(train_iter)
 
-        if not (every > 0 and step % every == 0):
-            # The periodic save already wrote this step otherwise.
-            with bench.time("checkpoint"):
-                save_checkpoint(self.output_dir / "checkpoints", step, wrapper.state_dict(state))
-        bench.dump(self.output_dir / "benchmark.json")
-        bench.dump_memory(self.output_dir / "peak_memory.json")
+        if rank_zero:
+            if not (every > 0 and step % every == 0):
+                # The periodic save already wrote this step otherwise.
+                with bench.time("checkpoint"):
+                    save_checkpoint(self.output_dir / "checkpoints", step, wrapper.state_dict(state))
+            bench.dump(self.output_dir / "benchmark.json")
+            bench.dump_memory(self.output_dir / "peak_memory.json")
         return state
 
     # ------------------------------------------------------------------
@@ -305,8 +322,9 @@ class Trainer:
                 Image.fromarray(img).save(color_dir / f"{idx:0>6}.png")
             count += 1
 
-        self.benchmarker.dump(out_dir / "benchmark.json")
-        self.benchmarker.dump_memory(out_dir / "peak_memory.json")
+        if is_rank_zero():
+            self.benchmarker.dump(out_dir / "benchmark.json")
+            self.benchmarker.dump_memory(out_dir / "peak_memory.json")
         summary: dict = {k: float(np.mean(x)) for k, x in all_metrics.items() if x}
         if not lpips_pretrained:
             summary["lpips"] = None

@@ -1,16 +1,30 @@
-"""Image IO: arrays <-> PNG (numpy, channel-first).
+"""Image IO: arrays <-> PNG, and a matplotlib figure -> array (numpy,
+channel-first).
 
-Port of `pixelsplat_tpu/utils/image_io.py` (without `fig_to_image`, which
-only the visualizations use).
+Port of `pixelsplat_tpu/utils/image_io.py`. `fig_to_image` imports nothing
+of matplotlib itself: it is handed a figure, so the package imports and
+runs where matplotlib is not installed.
 """
 
 from __future__ import annotations
 
+import io
 from pathlib import Path
 from typing import Union
 
 import numpy as np
 from PIL import Image
+
+
+def fig_to_image(fig, dpi: int = 100) -> np.ndarray:
+    """A matplotlib Figure -> (3, h, w) float image in [0, 1]."""
+    buffer = io.BytesIO()
+    fig.savefig(buffer, format="raw", dpi=dpi)
+    data = np.frombuffer(buffer.getvalue(), dtype=np.uint8)
+    buffer.close()
+    h, w = int(fig.bbox.bounds[3]), int(fig.bbox.bounds[2])
+    data = data.reshape(h, w, 4).transpose(2, 0, 1)
+    return data[:3].astype(np.float32) / 255.0
 
 
 def prep_image(image: np.ndarray) -> np.ndarray:

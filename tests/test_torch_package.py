@@ -65,8 +65,14 @@ def test_import_without_cuda_or_nvcc(tmp_path):
         "          'dataset.view_sampler.view_sampler_all', 'dataset.view_sampler.view_sampler_arbitrary',\n"
         "          'dataset.view_sampler.view_sampler_bounded', 'dataset.shims.crop_shim',\n"
         "          'dataset.shims.augmentation_shim', 'evaluation.metrics', 'training.trainer',\n"
-        "          'scripts.write_checkpoint', 'scripts.profile_protocol'):\n"
+        "          'scripts.write_checkpoint', 'scripts.profile_protocol', 'parallel', 'parallel.distributed',\n"
+        "          'parallel.mesh', 'parallel.render', 'utils.shape_checks', 'interop.pretrained',\n"
+        "          'evaluation.evaluation_cfg', 'evaluation.metric_computer', 'evaluation.evaluation_index_generator',\n"
+        "          'scripts.compute_metrics', 'scripts.generate_evaluation_index',\n"
+        "          'scripts.generate_video_evaluation_index'):\n"
         "    assert 'pixelsplat_tpu_torch.' + n in names, n\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()  # importing parallel/ creates no process group\n"
         "from pixelsplat_tpu_torch import kernel_build\n"
         "assert not kernel_build._loaded and not kernel_build.BUILD_DIR.exists()\n"
         "print(len(names))\n"
@@ -195,6 +201,57 @@ PRODUCTION_SLICE_SOURCES = [
     "scripts/kernel_smoke.py",
     "utils/pairings.py",
 ]
+
+
+# The slice across processes, and the evaluation tools.
+PARALLEL_AND_EVALUATION_SOURCES = [
+    "parallel/__init__.py",
+    "parallel/distributed.py",
+    "parallel/mesh.py",
+    "parallel/render.py",
+    "utils/shape_checks.py",
+    "interop/pretrained.py",
+    "evaluation/evaluation_cfg.py",
+    "evaluation/metric_computer.py",
+    "evaluation/evaluation_index_generator.py",
+    "scripts/compute_metrics.py",
+    "scripts/generate_evaluation_index.py",
+    "scripts/generate_video_evaluation_index.py",
+    "scripts/distributed_step.py",
+]
+
+
+@pytest.mark.parametrize("relative", PARALLEL_AND_EVALUATION_SOURCES)
+def test_parallel_and_evaluation_sources_exist_and_are_checked(relative):
+    path = PORT / relative
+    assert path.exists()
+    assert path in port_sources()  # so the import-isolation test reads it
+    assert not imported_top_levels(path) & FORBIDDEN
+
+
+def test_importing_parallel_creates_no_group():
+    import torch.distributed as dist
+
+    import pixelsplat_tpu_torch.parallel.distributed  # noqa: F401
+    import pixelsplat_tpu_torch.parallel.mesh  # noqa: F401
+    import pixelsplat_tpu_torch.parallel.render  # noqa: F401
+
+    assert not dist.is_initialized()
+
+
+def test_main_raises_without_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """`main` runs on `cuda:LOCAL_RANK` by default and joins no group when
+    the environment names none."""
+    from pixelsplat_tpu_torch import main as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("RANK", "WORLD_SIZE", "PIXELSPLAT_COORDINATOR", "PIXELSPLAT_DISTRIBUTED"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["+experiment=re10k", "mode=test"])
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("relative", PRODUCTION_SLICE_SOURCES)
