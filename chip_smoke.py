@@ -169,6 +169,27 @@ Phases, each reported on its own lines; any failure exits non-zero:
    within a bound on what 8-bit rounding can move them (derived above
    `eval_tools_phase`), printed beside the measured difference.
 
+13. visualization: `main.main` as `python -m pixelsplat_tpu_torch.main
+   +experiment=re10k mode=train train.extended_visualization=true` runs it,
+   on the fixture's train split as in phase 7 (TF32 off), `re10k` at full
+   width, 2 steps of the recipe with a validation check every step (the
+   pass falls on step 1). Checks no visualization failure caught, every
+   artifact of the validation (the three 256x256 Gaussian projections, the
+   camera diagram, each encoder figure, less `gaussian_stats` where
+   matplotlib does not import, with the omission printed; the wobble video
+   of 60 frames and the interpolation video of 30, MP4 or GIF as printed),
+   no dropped pair in any projection or video frame (and prints what the
+   JAX package's fixed projection settings would drop), and K1 launched
+   exactly steps x batch x views + per validation (2 variants x views + 3
+   projections per example + 90 frames), K2 steps x batch x views. Then K1
+   against its plain version on wobble frame 0 and on the XY projection
+   (the final weights), a 64x64 wobble frame card against the CPU port;
+   times of the frames (ms per frame), the projections, the visualizer's
+   encode with capture against the plain encode, and the figure drawing.
+   Then `scripts/test_splatter.py` (12 frames: K1 exactly 12 times, frame
+   0 against the CPU port) and `scripts/visualize_epipolar_lines.py` (card
+   against CPU, no kernel).
+
 Every kernel's launch count is set to 0 just before each path is driven
 and read just after it. The run ends with the card line, a JSON record of
 the five kernels and {"ok": true, "device": {...}}.
@@ -1934,6 +1955,320 @@ def eval_tools_phase(torch, renders: list) -> dict:
     return dict(psnr_err=errs["psnr"], ssim_err=errs["ssim"], bounds=bounds, index=indices["cuda"])
 
 
+# The extended visualization: the CLI's `mode=train` on the fixture's train
+# split as [train_protocol] runs it, with `train.extended_visualization` on,
+# 2 steps and a validation check every step (the pass falls on step 1).
+VISUALIZATION_ARGV = [
+    "+experiment=re10k", "mode=train", "loss.lpips.allow_random_weights=true", "train.extended_visualization=true",
+    "trainer.max_steps=2", "trainer.val_check_interval=1", "checkpointing.every_n_train_steps=2",
+    "trainer.log_every_n_steps=1",
+]
+VIDEO_FRAMES = {"wobble": 60, "interpolation": 30}
+SPLATTER_FRAMES = 12
+# Card against the CPU: the drawing primitives (f32 of the same formulas)
+# and the single splatted Gaussian (one K1 render against the plain one).
+DRAW_ATOL = 1e-5
+
+
+def video_frame_count(path: Path, rendered: int) -> tuple[int, str]:
+    """Frames in a logged video: decoded from a GIF; from ffprobe for an MP4
+    where it is on PATH, else the frames rendered into it."""
+    import shutil
+
+    from PIL import Image
+
+    if path.suffix == ".gif":
+        with Image.open(path) as gif:
+            return gif.n_frames, "GIF (PIL; no ffmpeg on PATH)"
+    if shutil.which("ffprobe"):
+        out = subprocess.run(
+            ["ffprobe", "-v", "error", "-count_frames", "-select_streams", "v:0", "-show_entries",
+             "stream=nb_read_frames", "-of", "csv=p=0", str(path)], capture_output=True, text=True, check=True,
+        ).stdout
+        return int(out.strip()), "MP4 (ffmpeg), frames counted by ffprobe"
+    return rendered, "MP4 (ffmpeg), frames as rendered (no ffprobe)"
+
+
+def visualization_phase(torch, kernels) -> dict:
+    """`main.main` in `mode=train` with `train.extended_visualization` on,
+    `re10k` at full width on the fixture's train split: every artifact of
+    each validation, K1's launches against the count the path implies, no
+    caught failure, no dropped pair; K1 against its plain version on a
+    wobble frame and a projection; a video frame of a small input against
+    the CPU port; `scripts/test_splatter.py` (12 launches, frame 0 against
+    the CPU port) and `scripts/visualize_epipolar_lines.py`; times."""
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from pixelsplat_tpu_torch import main as cli
+    from pixelsplat_tpu_torch.config import NUM_TARGET_VIEWS, load_config
+    from pixelsplat_tpu_torch.model.encoder.visualization.encoder_visualizer_epipolar import (
+        FIGURES,
+        EncoderVisualizerEpipolar,
+    )
+    from pixelsplat_tpu_torch.ops.rasterizer import composite_kernel
+    from pixelsplat_tpu_torch.ops.rasterizer.adaptive import sufficient_settings
+    from pixelsplat_tpu_torch.ops.rasterizer.composite import pack_columns
+    from pixelsplat_tpu_torch.ops.rasterizer.projection import pack_gaussians_soa
+    from pixelsplat_tpu_torch.ops.rasterizer.render import orthographic_frustum, project_and_bin
+    from pixelsplat_tpu_torch.scripts import test_splatter, visualize_epipolar_lines
+    from pixelsplat_tpu_torch.scripts.eval_scene import card_line, cuda_ms, scene_batch
+    from pixelsplat_tpu_torch.scripts.train_fixture import FIXTURE_OVERRIDES, write_train_root
+    from pixelsplat_tpu_torch.training.model_wrapper import batch_to
+    from pixelsplat_tpu_torch.training.trainer import (
+        _strip_non_arrays,
+        interpolation_cameras,
+        render_frames,
+        wobble_cameras,
+    )
+    from pixelsplat_tpu_torch.visualization.validation_in_3d import (
+        PROJECTION_SETTINGS,
+        projection_cameras,
+        render_projections,
+    )
+
+    card = card_line()
+    result = {"launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = write_train_root(tmp / "re10k")
+        out = tmp / "outputs"
+        argv = VISUALIZATION_ARGV + [f"dataset.roots=[{root}]", *FIXTURE_OVERRIDES, f"output_dir={out}"]
+        cfg = load_config(argv)
+        batch, views = cfg.data_loader.train.batch_size, cfg.dataset.view_sampler.num_target_views
+        val_batch = cfg.data_loader.val.batch_size
+        steps = cfg.trainer.max_steps
+        phase("visualization", f"main {' '.join(VISUALIZATION_ARGV)} on the fixture's train split; cuts: "
+              f"{' '.join(FIXTURE_OVERRIDES)}; batch {batch}, accumulate {cfg.trainer.accumulate_grad_batches}, "
+              f"images {cfg.dataset.image_shape}, {views} target views, TF32 off")
+        reset_launches(kernels)
+        with Captured(torch) as captured:
+            t0 = time.perf_counter()
+            state = cli.main(argv)
+            seconds = time.perf_counter() - t0
+        launches = launch_counts(kernels)
+        result["launches"]["visualization train_protocol re10k"] = launches
+        trainer = captured.trainer
+        val_steps = validation_steps(0, steps, cfg.trainer.val_check_interval)
+        phase("visualization", f"main returned step {state.step} in {seconds:.1f} s; validations at {val_steps}; "
+              f"caught visualization failures {trainer.visualization_failures}; launches {launches}")
+        if state.step != steps or trainer.visualization_failures or len(trainer.visualization_log) != len(val_steps):
+            fail(f"visualization: step {state.step}, failures {trainer.visualization_failures}, "
+                 f"{len(trainer.visualization_log)} extended validations for {len(val_steps)} validation passes")
+
+        # Every artifact of every validation.
+        local = out / "local"
+        for record, step in zip(trainer.visualization_log, val_steps):
+            png = f"{step:06d}.png"
+            omitted = record.get("encoder_omitted", {})
+            for name, reason in omitted.items():
+                phase("visualization", f"step {step}: encoder/{name} left out: {reason}")
+            if set(omitted) - {"gaussian_stats"}:
+                fail(f"visualization: encoder figures left out {omitted}")
+            want_figures = sorted(set(FIGURES) - set(omitted))
+            if record.get("encoder_figures") != want_figures:
+                fail(f"visualization: step {step} encoder figures {record.get('encoder_figures')}, expected {want_figures}")
+            sizes = {}
+            for key in ["projections", "cameras", *(f"encoder/{n}" for n in want_figures)]:
+                path = local / key / png
+                if not path.is_file():
+                    fail(f"visualization: {key} not logged at step {step}")
+                sizes[key] = Image.open(path).size
+            if sizes["projections"] != (3 * 256 + 4 * 8, 256 + 2 * 8) or sizes["cameras"] != (256, 256):
+                fail(f"visualization: projections {sizes['projections']}, cameras {sizes['cameras']}")
+            phase("visualization", f"step {step}: figures (w, h) {sizes}")
+            phase("visualization", f"step {step}: projections XY / ZY / XZ dropped pairs {record['projection_overflow']}; "
+                  f"settings rendered: " + "; ".join(
+                      f"capacity {s.capacity}, big_capacity {s.big_capacity}, pair_budget {s.pair_budget}"
+                      for s in record["projection_settings"]))
+            if any(record["projection_overflow"]):
+                fail(f"visualization: the projections dropped {record['projection_overflow']} pairs")
+            for name, frames in VIDEO_FRAMES.items():
+                path, dropped = record[f"{name}_file"], record[f"{name}_overflow"]
+                count, how = video_frame_count(path, len(dropped))
+                phase("visualization", f"step {step}: video/{name} {path.name}: {count} frames, {how}; dropped pairs "
+                      f"per frame: {'all 0' if not any(dropped) else dropped}")
+                if count != frames or len(dropped) != frames or any(dropped):
+                    fail(f"visualization: video/{name} has {count} frames ({len(dropped)} rendered, dropped "
+                         f"{dropped}), expected {frames} with none dropped")
+
+        # K1's launches: the training renders, the validation's two variants,
+        # 3 projections per validation example, and the videos' frames.
+        per_val = 2 * views + 3 * val_batch + sum(VIDEO_FRAMES.values())
+        want_fwd = steps * batch * views + len(val_steps) * per_val
+        want_bwd = steps * batch * views
+        formula = (f"{steps} steps x {batch} examples x {views} views + {len(val_steps)} validation(s) x (2 variants x "
+                   f"{views} views + 3 projections x {val_batch} example(s) + {' + '.join(map(str, VIDEO_FRAMES.values()))} "
+                   f"video frames)")
+        phase("visualization", f"composite_fwd {launches['composite_fwd']} = {formula} = {want_fwd}; composite_bwd "
+              f"{launches['composite_bwd']} = {steps} x {batch} x {views} = {want_bwd}")
+        if launches["composite_fwd"] != want_fwd or launches["composite_bwd"] != want_bwd or any(
+            n for k, n in launches.items() if k not in ("composite_fwd", "composite_bwd")
+        ):
+            fail(f"visualization: launches {launches}, expected composite_fwd {want_fwd}, composite_bwd {want_bwd}")
+
+        # K1 against its plain version on a wobble frame and a projection, at
+        # the weights the run ended with, on the validation batch.
+        wrapper = trainer.wrapper
+        batch_v = next(iter(trainer.data_module.val_dataloader()))
+        arrays = batch_to(_strip_non_arrays(batch_v), wrapper.device)
+        h, w = arrays["context"]["image"].shape[-2:]
+        with torch.no_grad():
+            gaussians = wrapper.make_eval_encode()(arrays, True, state.step)
+            soa = pack_gaussians_soa(gaussians.means[0], gaussians.covariances[0], gaussians.opacities[0],
+                                     harmonics=gaussians.harmonics[0])
+            cams, intr = (torch.tensor(np.asarray(x), dtype=torch.float32, device=wrapper.device)
+                          for x in wobble_cameras(batch_v, VIDEO_FRAMES["wobble"]))
+            near, far = arrays["context"]["near"][0, 0], arrays["context"]["far"][0, 0]
+            render = wrapper.decoder.cfg.render
+            cases = {"wobble frame 0": (*project_and_bin(cams[0], intr[0], near, soa, image_shape=(h, w),
+                                                         settings=render), render, w)}
+            # The pairs the JAX package's fixed projection settings drop from
+            # each view of this scene (binning only), and the settings the
+            # port renders the XY view at.
+            jax_drop = []
+            for camera in projection_cameras(gaussians.means):
+                e, k, n, _ = orthographic_frustum(camera.extrinsics, camera.width, camera.width, camera.near, camera.far)
+                _, tiles = project_and_bin(e[0], k[0], n[0], soa, image_shape=(256, 256), scale_invariant=False,
+                                           settings=PROJECTION_SETTINGS)
+                jax_drop.append(int(tiles.overflow))
+            camera = projection_cameras(gaussians.means)[0]
+            e, k, n, _ = orthographic_frustum(camera.extrinsics, camera.width, camera.width, camera.near, camera.far)
+            proj_settings = sufficient_settings(e, k, n, gaussians.means, gaussians.covariances, gaussians.opacities,
+                                                (256, 256), settings=PROJECTION_SETTINGS, scale_invariant=False)
+            cases["projection XY"] = (*project_and_bin(e[0], k[0], n[0], soa, image_shape=(256, 256),
+                                                       scale_invariant=False, settings=proj_settings), proj_settings, 256)
+        result["jax_settings_drop"] = jax_drop
+        phase("visualization", f"at the JAX package's projection settings (capacity {PROJECTION_SETTINGS.capacity}, big "
+              f"list {PROJECTION_SETTINGS.big_capacity}) the XY / ZY / XZ views of validation batch 0 at the final "
+              f"weights would drop {jax_drop} pairs; the port renders the XY view at capacity {proj_settings.capacity}, "
+              f"big_capacity {proj_settings.big_capacity}, pair_budget {proj_settings.pair_budget}")
+        errs, timing = [], {}
+        for label, (projected, tiles, settings, width) in cases.items():
+            table = pack_columns(projected).contiguous()
+            tiles_x = -(-width // settings.tile_size)
+            scale = max(1.0, float(table[:, 6:].abs().max()))
+            err, n_k = check_kernel_against_plain(composite_kernel, label, tiles, table, settings.chunk, tiles_x)
+            if err > KERNEL_ATOL * scale:
+                fail(f"visualization: composite_fwd on the {label}: {err:.3g} > {KERNEL_ATOL} x {scale:.3g}")
+            errs.append(err)
+            args = (table, tiles.flat, tiles.block_start, tiles.counts, tiles_x, settings.chunk)
+            bound, by = composite_bound_ms(tiles, table, n_k, settings.chunk)
+            timing[label] = dict(
+                ms=cuda_ms(lambda: composite_kernel.composite_core(*args), iters=20),
+                plain_ms=cuda_ms(lambda: composite_kernel.composite_core_plain(*args), iters=2, warmup=1),
+                bound_ms=bound, bound_by=by, slots=int(tiles.counts.sum()), max_tile=int(tiles.counts.max()),
+            )
+            phase("timing", f"visualization {label} | {card} | composite_fwd {timing[label]['ms']:.4f} ms, plain "
+                  f"{timing[label]['plain_ms']:.3f} ms, bound {bound:.4f} ms ({by}); list slots "
+                  f"{timing[label]['slots']}, longest tile {timing[label]['max_tile']}, capacity {settings.capacity}")
+        result["fwd_err"], result["k1"] = max(errs), timing
+
+        # Times: the videos' frames, the projections, the visualizer's encode
+        # with capture against the plain encode, and the figure drawing.
+        with torch.no_grad():
+            video_ms = {}
+            for name, frames in VIDEO_FRAMES.items():
+                maker = wobble_cameras if name == "wobble" else interpolation_cameras
+                c, i = (torch.tensor(np.asarray(x), dtype=torch.float32, device=wrapper.device)
+                        for x in maker(batch_v, frames))
+                video_ms[name] = cuda_ms(lambda: render_frames(wrapper.decoder, gaussians, c, i, near, far, (h, w)),
+                                         iters=2, warmup=1) / frames
+            projections_ms = cuda_ms(lambda: render_projections(gaussians, 256), iters=2, warmup=1)
+            encoder, context = wrapper.encoder, arrays["context"]
+
+            def plain_encode():
+                encoder(context, state.step, False, generator=torch.Generator(device=wrapper.device).manual_seed(0))
+
+            def captured_encode():
+                with encoder.capture_intermediates():
+                    encoder(context, state.step, False, generator=torch.Generator(device=wrapper.device).manual_seed(0),
+                            visualization_dump={})
+
+            encode_ms = {"plain": [], "capture": []}
+            for which in ("plain", "capture", "capture", "plain"):
+                encode_ms[which].append(cuda_ms(plain_encode if which == "plain" else captured_encode, iters=3))
+            encode_ms = {k: sum(v) / len(v) for k, v in encode_ms.items()}
+            visualizer = EncoderVisualizerEpipolar(encoder)
+            visualizer.visualize(context, state.step, generator=torch.Generator(device=wrapper.device).manual_seed(0))  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            figures = visualizer.visualize(context, state.step, generator=torch.Generator(device=wrapper.device).manual_seed(0))
+            torch.cuda.synchronize()
+            visualize_ms = 1e3 * (time.perf_counter() - t0)
+        result["times"] = dict(video_ms_per_frame=video_ms, projections_ms=projections_ms, encode_ms=encode_ms,
+                               visualize_ms=visualize_ms, figures_ms=visualize_ms - encode_ms["capture"])
+        phase("timing", f"visualization | {card} | video frames {({k: round(v, 3) for k, v in video_ms.items()})} ms "
+              f"per frame (CUDA events; packing once, then one decoder call per frame); projections "
+              f"{projections_ms:.2f} ms for 3 views (with the list-sizing pre-pass and its host syncs); "
+              f"encode plain {encode_ms['plain']:.2f} ms, with capture {encode_ms['capture']:.2f} ms (CUDA events, "
+              f"alternating); visualize {visualize_ms:.1f} ms on the host clock, of which figure drawing "
+              f"{visualize_ms - encode_ms['capture']:.1f} ms ({len(figures)} figures)")
+
+        # A video frame of a small input, card against the CPU port: the
+        # depth encoding cut as in the tight references, equal weights.
+        small = scene_batch("cpu", torch.Generator().manual_seed(SEED + 11), 64, 64)
+        frames = []
+        for ref in reference_pair(torch, wrapper, REFERENCE_OCTAVES):
+            with torch.no_grad():
+                g = ref.make_eval_encode()(small, True, 0)
+                c, i = (torch.tensor(np.asarray(x), dtype=torch.float32, device=ref.device)[:1]
+                        for x in wobble_cameras(small, VIDEO_FRAMES["wobble"]))
+                frames.append(render_frames(ref.decoder, g, c, i, small["context"]["near"][0, 0].to(ref.device),
+                                            small["context"]["far"][0, 0].to(ref.device), (64, 64)))
+        (f_gpu, d_gpu), (f_cpu, d_cpu) = frames
+        diff = (f_gpu.cpu() - f_cpu).abs()
+        frac_off = float((diff > 1e-3).float().mean())
+        phase("reference", f"64x64 wobble frame 0 (depth encoding cut to {REFERENCE_OCTAVES} octaves): max err "
+              f"{float(diff.max()):.3g}, mean err {float(diff.mean()):.3g}, pixels off by >1e-3: {frac_off:.4%}, "
+              f"dropped {d_gpu}/{d_cpu}")
+        if float(diff.mean()) > 1e-4 or frac_off > 0.01 or any(d_gpu + d_cpu):
+            fail("visualization: the card's wobble frame disagrees with the CPU port on the small input")
+        del gaussians, soa, cases, visualizer, figures, batch_v, arrays, trainer, captured, state, wrapper, encoder
+        del frames, g
+        gc_cuda(torch)
+
+    # The two smoke scripts.
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        splat = test_splatter.main([str(tmp / "splatter"), str(SPLATTER_FRAMES)])
+        splat_s = time.perf_counter() - t0
+        splat_launches = launch_counts(kernels)
+        result["launches"]["visualization test_splatter"] = splat_launches
+        cpu0 = test_splatter.render_frames(1, torch.device("cpu"))[0]  # the orbit's first camera
+        err = float((splat[0] - cpu0).abs().max())
+        pngs = sorted(p.name for p in (tmp / "splatter").iterdir())
+        phase("visualization", f"test_splatter: {len(pngs)} PNGs in {splat_s:.2f} s, launches {splat_launches}; "
+              f"frame 0 against the CPU port max |d| {err:.3g}; frame means "
+              f"{[round(float(x.mean()), 4) for x in splat[:4]]} ...")
+        if splat_launches["composite_fwd"] != SPLATTER_FRAMES or sum(splat_launches.values()) != SPLATTER_FRAMES:
+            fail(f"visualization: test_splatter launched {splat_launches}, expected composite_fwd {SPLATTER_FRAMES}")
+        if len(pngs) != SPLATTER_FRAMES or err > KERNEL_ATOL or not float(splat.max()) > 0.1:
+            fail(f"visualization: test_splatter wrote {len(pngs)} frames, frame 0 off the CPU port by {err:.3g}")
+        reset_launches(kernels)
+        lines_card = visualize_epipolar_lines.main([str(tmp / "lines")])
+        lines_launches = launch_counts(kernels)
+        lines_cpu = visualize_epipolar_lines.main([str(tmp / "lines_cpu")], device="cpu")
+        errs = {i: float(np.abs(lines_card[i] - lines_cpu[i]).max()) for i in lines_cpu}
+        phase("visualization", f"visualize_epipolar_lines: lines {sorted(lines_card)} drawn, card against CPU max "
+              f"|d| {errs}, launches {lines_launches}")
+        if sorted(lines_card) != sorted(lines_cpu) or not lines_card or any(e > DRAW_ATOL for e in errs.values()) \
+                or any(lines_launches.values()):
+            fail("visualization: visualize_epipolar_lines differs between the card and the CPU, or launched a kernel")
+    return result
+
+
+def gc_cuda(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not (ROOT / "pixelsplat_tpu_torch").is_dir():
         fail("pixelsplat_tpu_torch/ not found beside chip_smoke.py: run from a checkout")
@@ -2015,6 +2350,9 @@ def main() -> None:
     # 12. the evaluation tools on the fixture and on [eval_protocol]'s PNGs
     eval_tools_phase(torch, protocol["renders"])
 
+    # 13. training's extended visualization through the CLI, and the smoke scripts
+    visualization = visualization_phase(torch, kernels)
+
     by_path = {"tools": {name: smoke_launches[name] + tools["launches"][name] for name in kernels}}
     by_path["eval_protocol"] = protocol["launches"]
     by_path.update(training["launches"])
@@ -2022,6 +2360,7 @@ def main() -> None:
     by_path["bf16"] = bf16["launches"]
     by_path["native re10k_3_view eval_protocol"] = native["launches"]
     by_path.update(distributed["launches"])
+    by_path.update(visualization["launches"])
     for model, r in results.items():
         for path, counts in r["launches"].items():
             by_path[f"{model} {path}"] = counts
@@ -2046,7 +2385,7 @@ def main() -> None:
         "kernels": [
             entry(
                 "composite_fwd", "composite_fwd.cu", "pixelsplat_tpu/ops/rasterizer/pallas_composite.py:281",
-                max_abs_err=max([r["fwd_err"] for r in results.values()] + [experiments["fwd_err"]]),
+                max_abs_err=max([r["fwd_err"] for r in results.values()] + [experiments["fwd_err"], visualization["fwd_err"]]),
                 ms=main_model["fwd"][0],
                 plain_ms=main_model["fwd"][1], bound_ms=main_model["fwd"][2], bound_by=main_model["fwd"][3],
                 longest_tile_ms=main_model["fwd"][4],
@@ -2054,6 +2393,7 @@ def main() -> None:
                 experiments_view0={m: dict(ms=x["k1_ms"], plain_ms=x["k1_plain_ms"], bound_ms=x["k1_bound"][0],
                                            bound_by=x["k1_bound"][1]) for m, x in experiments["scenes"].items()},
                 **depth_numbers(training["depth_fwd"]),
+                visualization=visualization["k1"],
             ),
             entry(
                 "composite_bwd", "composite_bwd.cu", "pixelsplat_tpu/ops/rasterizer/pallas_backward.py:234",

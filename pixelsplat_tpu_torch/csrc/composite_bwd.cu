@@ -169,7 +169,12 @@ __device__ __forceinline__ Slot eval_slot(const float* q, float px, float py) {
   Slot s;
   s.dx = px - q[0];
   s.dy = py - q[1];
-  const float power = -0.5f * (q[2] * s.dx * s.dx + q[4] * s.dy * s.dy) - q[3] * s.dx * s.dy;
+  // Rounded op by op, as the forward kernel and the plain versions round
+  // it, so that all of them take the same pairs across power = 0 and
+  // raw = 1/255.
+  const float power = __fsub_rn(
+      __fmul_rn(-0.5f, __fadd_rn(__fmul_rn(__fmul_rn(q[2], s.dx), s.dx), __fmul_rn(__fmul_rn(q[4], s.dy), s.dy))),
+      __fmul_rn(__fmul_rn(q[3], s.dx), s.dy));
   s.expp = expf(power);
   s.raw = q[5] * s.expp;
   s.live = power <= 0.0f && s.raw >= kMinAlpha;

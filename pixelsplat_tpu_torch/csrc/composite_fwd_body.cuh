@@ -148,7 +148,12 @@ __device__ __forceinline__ void composite_tile(
       } else {
         const float dx = px - g[0];
         const float dy = py - g[1];
-        power = -0.5f * (g[2] * dx * dx + g[4] * dy * dy) - g[3] * dx * dy;
+        // Rounded op by op, as the plain version rounds it: a contracted
+        // multiply-add moves alpha across 1/255 for pairs within rounding
+        // of it, and such a pair changes the pixel by up to T / 255.
+        power = __fsub_rn(
+            __fmul_rn(-0.5f, __fadd_rn(__fmul_rn(__fmul_rn(g[2], dx), dx), __fmul_rn(__fmul_rn(g[4], dy), dy))),
+            __fmul_rn(__fmul_rn(g[3], dx), dy));
       }
       float alpha;
       if (kDrop & kDropExpPower) {

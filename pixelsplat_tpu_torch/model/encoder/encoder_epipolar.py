@@ -16,8 +16,9 @@ heads, the Gaussians and the rasterizer stay f32.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Literal, Optional, Union
+from typing import Iterator, Literal, Optional, Union
 
 import torch
 from torch import nn
@@ -104,6 +105,28 @@ class EncoderEpipolar(nn.Module):
         x = cfg.initial + frac * (cfg.final - cfg.initial)
         exponent = 2.0**x
         return 0.5 * (1.0 - (1.0 - pdf) ** exponent + pdf ** (1.0 / exponent))
+
+    @contextmanager
+    def capture_intermediates(self) -> Iterator[dict]:
+        """Within the block, each forward records what the JAX encoder sows
+        into `intermediates`: under "attention", one list per layer of the
+        epipolar transformer's cross-attention maps (b*v*r, heads, 1,
+        samples*(v-1)) (not the image self-attention's); under "pdf" and
+        "offset", the depth predictor's. Outside the block the encoder
+        records nothing."""
+        layers = []
+        if self.cfg.use_epipolar_transformer:
+            layers = [attention.fn for attention, _ in self.epipolar_transformer.transformer.layers]
+        captured: dict = {"attention": [[] for _ in layers]}
+        for layer, maps in zip(layers, captured["attention"]):
+            layer.capture = maps
+        self.depth_predictor.capture = captured
+        try:
+            yield captured
+        finally:
+            for layer in layers:
+                layer.capture = None
+            self.depth_predictor.capture = None
 
     def forward(
         self,

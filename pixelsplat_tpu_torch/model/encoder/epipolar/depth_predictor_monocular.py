@@ -9,6 +9,10 @@ sampled bucket's probability or, with `use_transmittance` (the
 over the mass left in front of the bucket, pdf / (1 - exclusive cumsum
 of pdf + 1e-10), so that a front-to-back composite of the buckets gives
 back the pdf.
+
+`capture`, a dict when set (None by default), receives the bucket
+distribution `pdf` and the offsets `offset`, each (b, v, ray, surface,
+bucket): what the JAX module sows into `intermediates`.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ class DepthPredictorMonocular(nn.Module):
         self.num_samples = num_samples
         self.num_surfaces = num_surfaces
         self.use_transmittance = use_transmittance
+        self.capture: Optional[dict] = None
         self.projection = nn.Sequential(
             nn.ReLU(), nn.Linear(d_in, 2 * num_samples * num_surfaces)
         )
@@ -60,6 +65,8 @@ class DepthPredictorMonocular(nn.Module):
         x = x.reshape(*x.shape[:-1], s, self.num_surfaces, 2)
         pdf = torch.softmax(x[..., 0].transpose(-1, -2), dim=-1)  # (b, v, r, srf, dpt)
         offset = torch.sigmoid(x[..., 1].transpose(-1, -2))
+        if self.capture is not None:
+            self.capture.update(pdf=pdf, offset=offset)
 
         if deterministic:
             index, pdf_i = gather_discrete_topk(pdf, gaussians_per_pixel)

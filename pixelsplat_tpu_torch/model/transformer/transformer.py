@@ -16,6 +16,10 @@ summation order.
 the attention products run in it, the softmax in f32, the LayerNorms give
 f32, and each block's output is cast back to its input's dtype, at the
 JAX module's cast points.
+
+`Attention.capture`, a list when set (None by default), receives each
+attention map (b, heads, queries, keys) after the softmax and the cast to
+the compute dtype: what the JAX `Attention` sows into `intermediates`.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ class Attention(nn.Module):
         self.dim_head = dim_head
         self.scale = dim_head**-0.5
         self.dtype = dtype
+        self.capture: Optional[list] = None
         if selfatt:
             self.to_qkv = precision.Linear(dim, inner * 3, bias=False, compute_dtype=dtype)
         else:
@@ -58,7 +63,10 @@ class Attention(nn.Module):
 
         def softmax(logits):  # in f32, then in the compute dtype
             attn = torch.softmax(logits.float(), dim=-1)
-            return attn if self.dtype is None else attn.to(self.dtype)
+            attn = attn if self.dtype is None else attn.to(self.dtype)
+            if self.capture is not None:
+                self.capture.append(attn)
+            return attn
 
         if z is None:
             q, k, v = (self._split_heads(t) for t in self.to_qkv(x).chunk(3, dim=-1))

@@ -15,7 +15,7 @@ from dataclasses import replace
 
 import torch
 
-from .binning import count_big, tile_occupancy
+from .binning import count_big, default_pair_budget, tile_occupancy
 from .projection import project_gaussians
 from .render import DEFAULT_SETTINGS, RenderSettings, render
 
@@ -32,13 +32,14 @@ def _occupancy_stats(
     span: int,
     big_capacity: int,
     chunk: int,
+    scale_invariant: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Max per-tile count and max flat-budget demand over the b views, and
     the big-list capacity that holds every view's big Gaussians (at least
-    `big_capacity`)."""
+    `big_capacity`). `scale_invariant` as in `render`."""
     projected = []
     for e, k, n, m, c, o in zip(extrinsics, intrinsics, near, means, covariances, opacities):
-        scale = 1.0 / n
+        scale = 1.0 / n if scale_invariant else torch.ones_like(n)
         e = e.clone()
         e[:3, 3] = e[:3, 3] * scale
         projected.append(project_gaussians(
@@ -93,6 +94,42 @@ def choose_settings(
     worst = settings.span**2 * g + num_tiles * (big_capacity + settings.chunk)
     pair_budget = -(-max(min(budget, worst), 65536) // settings.chunk) * settings.chunk
     return replace(chosen, pair_budget=pair_budget)
+
+
+def sufficient_settings(
+    extrinsics: torch.Tensor,  # (b, 4, 4)
+    intrinsics: torch.Tensor,  # (b, 3, 3)
+    near: torch.Tensor,  # (b,)
+    gaussian_means: torch.Tensor,  # (b, g, 3)
+    gaussian_covariances: torch.Tensor,  # (b, g, 3, 3)
+    gaussian_opacities: torch.Tensor,  # (b, g)
+    image_shape: tuple[int, int],
+    settings: RenderSettings = DEFAULT_SETTINGS,
+    scale_invariant: bool = True,
+) -> RenderSettings:
+    """`settings` where they hold these views' lists, else with the tile
+    capacity, the big list and the pair budget each grown (in whole chunks)
+    to what the views need, so that no pair is dropped. One host sync."""
+    max_count, budget, big_capacity = _occupancy_stats(
+        extrinsics, intrinsics, near, gaussian_means, gaussian_covariances,
+        gaussian_opacities, image_shape, settings.tile_size, settings.span,
+        settings.big_capacity, settings.chunk, scale_invariant,
+    )
+    chunk = settings.chunk
+    max_count, budget = int(max_count), int(budget)
+    chosen = settings
+    if max_count > settings.capacity:
+        chosen = replace(chosen, capacity=-(-max_count // chunk) * chunk)
+    if big_capacity > settings.big_capacity:
+        chosen = replace(chosen, big_capacity=big_capacity)
+    pair_budget = settings.pair_budget
+    if pair_budget is None:
+        h, w = image_shape
+        num_tiles = (-(-w // settings.tile_size)) * (-(-h // settings.tile_size))
+        pair_budget = default_pair_budget(gaussian_means.shape[1], num_tiles, chosen.big_capacity, settings.span, chunk)
+    if budget > pair_budget:
+        chosen = replace(chosen, pair_budget=-(-budget // chunk) * chunk)
+    return chosen
 
 
 def render_adaptive(

@@ -53,6 +53,14 @@ def _tile_bounds(projected: ProjectedGaussians, tile_size: int, tiles_x: int, ti
     return x0, x1, y0, y1
 
 
+def default_pair_budget(g: int, num_tiles: int, big_capacity: int, span: int, chunk: int) -> int:
+    """The flat pair array's size that `bin_gaussians` takes for
+    `pair_budget=None`: the exact worst case when small, else twice the
+    Gaussian count plus one chunk of alignment padding per tile."""
+    worst = span * span * g + num_tiles * (big_capacity + chunk)
+    return min(worst, max(2 * g + num_tiles * chunk, 65536))
+
+
 def bin_gaussians(
     projected: ProjectedGaussians,
     image_shape: tuple[int, int],
@@ -225,11 +233,7 @@ def bin_gaussians(
     overflow = overflow + (raw_counts - counts).sum().to(i32)
 
     if pair_budget is None:
-        # The exact worst case when small, else twice the Gaussian count
-        # plus one chunk of alignment padding per tile.
-        worst = span * span * g + num_tiles * (big_capacity + chunk)
-        floor = max(2 * g + num_tiles * chunk, 65536)
-        pair_budget = min(worst, floor)
+        pair_budget = default_pair_budget(g, num_tiles, big_capacity, span, chunk)
     pair_budget = -(-pair_budget // chunk) * chunk
     nb = pair_budget // chunk
 

@@ -287,9 +287,11 @@ def render_orthographic(
     fov_degrees: float = 0.1,
     use_sh: bool = True,
     settings: RenderSettings = DEFAULT_SETTINGS,
-) -> torch.Tensor:
+    return_overflow: bool = False,
+):
     """An orthographic view (b, c, h, w): `render` through
-    `orthographic_frustum`, without the 1/near rescale."""
+    `orthographic_frustum`, without the 1/near rescale. With
+    `return_overflow`, also the (b,) dropped (gaussian, tile) pairs."""
     extrinsics, intrinsics, near, far = orthographic_frustum(
         extrinsics, width, height, near, far, fov_degrees
     )
@@ -307,4 +309,5 @@ def render_orthographic(
         scale_invariant=False,
         use_sh=use_sh,
         settings=settings,
+        return_overflow=return_overflow,
     )

@@ -4,9 +4,10 @@ disagreement traced to the (slot, pixel) pairs that cause it.
     python -m pixelsplat_tpu_torch.scripts.check_composite_bwd [--model NAME] [--batches N]
 
 The gradient of the compositor jumps where a (slot, pixel) pair crosses
-power = 0, raw = 1/255 or raw = 0.99. The kernel (fused multiply-adds,
-expf) and the plain version round differently, so a pair within rounding
-of a threshold may be composited by one and not by the other. `compare`
+power = 0, raw = 1/255 or raw = 0.99. The kernels round the quadratic form
+op by op, as the plain versions do; where their power, expf or raw still
+round differently, a pair within rounding of a threshold may be
+composited by one and not by the other. `compare`
 holds every row of d_table to one tolerance and excuses nothing by
 proximity alone. A disagreement is accepted only when it is shown to be
 such a pair's:

@@ -15,9 +15,8 @@ other, whole and on its longest tile alone (the tile with the most
 processed chunks, every other tile's counts set to 0), and the means are
 printed with the card's name and power limit.
 
-The other checkout's `composite_bwd` is taken to have the C signature of
-the one-block-per-tile design (no scratch arguments); its `composite_fwd`
-has this checkout's.
+The other checkout's kernels are taken to have this checkout's C
+signatures (the chunk-parallel `composite_bwd`, with its scratch).
 """
 
 from __future__ import annotations
@@ -44,7 +43,7 @@ def other_kernels(csrc: Path):
     fwd_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
     fwd_fn.restype = ctypes.c_int
     bwd_fn = kernel_build.load("composite_bwd", csrc).composite_bwd
-    bwd_fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    bwd_fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
     bwd_fn.restype = ctypes.c_int
 
     def fwd(table, flat, block_start, counts, tiles_x, chunk, tile_size=16):
@@ -61,10 +60,13 @@ def other_kernels(csrc: Path):
 
     def bwd(table, flat, block_start, counts, n_proc, trans, g_acc, g_trans, tiles_x, chunk, tile_size=16):
         d_table = torch.zeros_like(table)
+        n_blocks = flat.numel() // chunk
+        sums = torch.empty((n_blocks, 256, 2), device=table.device)
+        block_map = torch.empty((n_blocks,), dtype=torch.int32, device=table.device)
         err = bwd_fn(table.data_ptr(), flat.data_ptr(), block_start.data_ptr(), counts.data_ptr(),
                      n_proc.data_ptr(), trans.data_ptr(), g_acc.data_ptr(), g_trans.data_ptr(),
-                     counts.shape[0], tiles_x, chunk, table.shape[0], d_table.data_ptr(),
-                     torch.cuda.current_stream().cuda_stream)
+                     counts.shape[0], tiles_x, chunk, table.shape[0], n_blocks, sums.data_ptr(),
+                     block_map.data_ptr(), d_table.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"the other composite_bwd failed: cudaError {err}")
         return d_table

@@ -1,7 +1,9 @@
 """The trainer: the training loop and the evaluation protocol.
 
 Port of `pixelsplat_tpu/training/trainer.py`: `TrainerCfg` and the
-`Trainer` with `fit`, `validation_step` and `test`.
+`Trainer` with `fit`, `validation_step` (with the extended visualization:
+the Gaussian projections, the camera diagram, the encoder's figures and
+the wobble and interpolation videos) and `test`.
 
 `fit` takes optimizer steps (`ModelWrapper.make_train_step`, with
 `accumulate_grad_batches` micro-batches per update) over the data module's
@@ -63,6 +65,7 @@ from PIL import Image
 from ..dataset.data_module import DataModule
 from ..evaluation.lpips import get_lpips, load_lpips
 from ..evaluation.metrics import compute_psnr, compute_ssim
+from ..ops.rasterizer.projection import GaussiansSoA, pack_gaussians_soa
 from ..parallel.distributed import is_rank_zero, rank_and_world, rank_seed
 from ..utils.benchmarker import Benchmarker
 from ..utils.local_logger import LocalLogger
@@ -98,13 +101,57 @@ def _strip_non_arrays(batch: dict) -> dict:
     return out
 
 
-def _refuse_extended_visualization(wrapper: ModelWrapper) -> None:
-    if wrapper.train_cfg.extended_visualization:
-        raise NotImplementedError(
-            "train.extended_visualization: the Gaussian projections, camera diagrams, encoder "
-            "figures and wobble / interpolation videos are not ported yet; they are ROADMAP.md "
-            "queue 1, item 7 (tooling). Set train.extended_visualization=false"
-        )
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def wobble_cameras(batch: dict, num_frames: int) -> tuple[np.ndarray, np.ndarray]:
+    """(extrinsics (n, 4, 4), intrinsics (n, 3, 3)) of the wobble video: a
+    circle around the first context camera of batch element 0, its radius
+    growing to a quarter of the context baseline."""
+    from ..visualization.camera_trajectory.wobble import generate_wobble
+
+    extr = _host(batch["context"]["extrinsics"][0])
+    intr = _host(batch["context"]["intrinsics"][0])
+    delta = float(np.linalg.norm(extr[0, :3, 3] - extr[-1, :3, 3]))
+    t = np.linspace(0, 1, num_frames).astype(np.float32)
+    return generate_wobble(extr[0], np.asarray(delta * 0.25), t), np.broadcast_to(intr[0], (num_frames, 3, 3))
+
+
+def interpolation_cameras(batch: dict, num_frames: int) -> tuple[np.ndarray, np.ndarray]:
+    """(extrinsics, intrinsics) of the interpolation video: from the first
+    context camera of batch element 0 to its last."""
+    from ..visualization.camera_trajectory.interpolation import interpolate_extrinsics, interpolate_intrinsics
+
+    extr = _host(batch["context"]["extrinsics"][0])
+    intr = _host(batch["context"]["intrinsics"][0])
+    t = np.linspace(0, 1, num_frames).astype(np.float32)
+    return interpolate_extrinsics(extr[0], extr[-1], t), interpolate_intrinsics(intr[0], intr[-1], t)
+
+
+@torch.no_grad()
+def render_frames(
+    decoder,
+    gaussians,  # Gaussians, batch element 0 rendered
+    cameras: torch.Tensor,  # (n, 4, 4)
+    intrinsics: torch.Tensor,  # (n, 3, 3)
+    near: torch.Tensor,  # ()
+    far: torch.Tensor,  # ()
+    image_shape: tuple[int, int],
+) -> tuple[torch.Tensor, list[int]]:
+    """The frames of a video: batch element 0's Gaussians packed once and
+    rendered through `decoder` one camera at a time (one compositing launch
+    each). Returns ((n, 3, h, w) frames, dropped pairs per frame)."""
+    soa = pack_gaussians_soa(gaussians.means[0], gaussians.covariances[0], gaussians.opacities[0],
+                             harmonics=gaussians.harmonics[0])
+    soa = GaussiansSoA(*(None if x is None else x[None] for x in soa))  # the batch axis the decoder reads
+    frames, overflow = [], []
+    for i in range(cameras.shape[0]):
+        out = decoder(soa, cameras[None, i : i + 1], intrinsics[None, i : i + 1], near.reshape(1, 1),
+                      far.reshape(1, 1), image_shape)
+        frames.append(out.color[0, 0])
+        overflow.append(out.overflow)
+    return torch.stack(frames), [int(x) for x in torch.stack(overflow).cpu()]
 
 
 class Trainer:
@@ -128,13 +175,16 @@ class Trainer:
         self.logger = logger or LocalLogger(self.output_dir / "local")
         self.seed = seed
         self.benchmarker = Benchmarker(wrapper.device)
+        # The extended visualization's failures, each "artifact: error"
+        # (training goes on past them), and what each validation drew.
+        self.visualization_failures: list[str] = []
+        self.visualization_log: list[dict] = []
 
     # ------------------------------------------------------------------
     def fit(self, resume_from: Optional[Path] = None) -> TrainState:
         """Train until `max_steps` (forever when negative); returns the
         final state."""
         wrapper = self.wrapper
-        _refuse_extended_visualization(wrapper)
         bench = self.benchmarker
         train_iter = iter(self.data_module.train_dataloader())
         with bench.time("data"):
@@ -201,21 +251,21 @@ class Trainer:
         """Probabilistic and deterministic renders of the batch's target
         views: PSNR, SSIM (and LPIPS with pretrained weights) per variant,
         and the comparison grid (context | target | probabilistic |
-        deterministic) through the logger."""
+        deterministic) through the logger; with
+        `train.extended_visualization`, also `extended_visualization`."""
         wrapper = self.wrapper
-        _refuse_extended_visualization(wrapper)
         arrays = batch_to(_strip_non_arrays(batch), wrapper.device)
         target = arrays["target"]
         b, v, c, h, w = target["image"].shape
         encode = wrapper.make_eval_encode()
 
-        colors = {}
+        colors, gaussians = {}, {}
         with torch.no_grad():
             for name, deterministic in (("probabilistic", False), ("deterministic", True)):
                 generator = torch.Generator(device=wrapper.device).manual_seed(step)
-                gaussians = encode(arrays, deterministic, state.step, generator=generator)
+                gaussians[name] = encode(arrays, deterministic, state.step, generator=generator)
                 colors[name] = wrapper.decoder(
-                    gaussians, target["extrinsics"], target["intrinsics"], target["near"], target["far"],
+                    gaussians[name], target["extrinsics"], target["intrinsics"], target["near"], target["far"],
                     (h, w),
                 ).color
 
@@ -238,8 +288,90 @@ class Trainer:
         rows = [row(arrays["context"]["image"][0], "Context"), row(target["image"][0], "Target (GT)")]
         rows += [row(color[0], f"Target ({name})") for name, color in colors.items()]
         self.logger.log_image("comparison", add_border(vcat(*rows)), step=step)
+        if wrapper.train_cfg.extended_visualization:
+            self.extended_visualization(arrays, gaussians["deterministic"], step)
         print("validation;", "; ".join(f"{k}={x:.3f}" for k, x in metrics.items()))
         return metrics
+
+    # ------------------------------------------------------------------
+    def extended_visualization(self, arrays: dict, gaussians, step: int) -> dict:
+        """The JAX validation's extended figures, each through the logger:
+        "projections" (the deterministic Gaussians from three orthographic
+        cameras), "cameras" (the frusta's XY projection), "encoder/<name>"
+        for each encoder figure, "video/wobble" and "video/interpolation"
+        (the deterministic Gaussians from moving cameras).
+
+        As in the JAX package an error here does not end training; each
+        artifact that fails is counted in `visualization_failures` and
+        printed, and the others are still drawn. Returns what was drawn:
+        the dropped pairs of each projection and video frame, the files,
+        and the figures left out."""
+        from ..model.encoder.visualization.encoder_visualizer_epipolar import EncoderVisualizerEpipolar
+        from ..visualization.validation_in_3d import render_cameras, render_projections
+
+        record: dict = {"step": step}
+
+        def projections():
+            result = render_projections(gaussians, 256)
+            record["projection_overflow"] = result.overflow.sum(dim=0).tolist()
+            record["projection_settings"] = result.settings
+            images = _host(result.images[0])
+            self.logger.log_image("projections", add_border(hcat(*images)), step=step)
+
+        def cameras():
+            self.logger.log_image("cameras", _host(render_cameras(arrays, 256)[0]), step=step)
+
+        def encoder_figures():
+            visualizer = EncoderVisualizerEpipolar(self.wrapper.encoder)
+            generator = torch.Generator(device=self.wrapper.device).manual_seed(0)
+            figures = visualizer.visualize(arrays["context"], step, generator=generator)
+            for name, figure in figures.items():
+                self.logger.log_image(f"encoder/{name}", figure, step=step)
+            record["encoder_figures"] = sorted(figures)
+            record["encoder_omitted"] = dict(visualizer.omitted)
+            for name, reason in visualizer.omitted.items():
+                print(f"validation: encoder/{name} left out: {reason}")
+
+        def video(name, render):
+            def run():
+                record[f"{name}_file"], record[f"{name}_overflow"] = render(arrays, gaussians, step)
+            return run
+
+        for name, draw in (
+            ("projections", projections), ("cameras", cameras), ("encoder", encoder_figures),
+            ("video/wobble", video("wobble", self.render_video_wobble)),
+            ("video/interpolation", video("interpolation", self.render_video_interpolation)),
+        ):
+            try:
+                with torch.no_grad():
+                    draw()
+            except Exception as exc:  # a figure must not end training; counted and printed
+                self.visualization_failures.append(f"{name}: {type(exc).__name__}: {exc}")
+                print(f"validation: extended visualization {name} failed: {type(exc).__name__}: {exc}")
+        self.visualization_log.append(record)
+        return record
+
+    def render_video_wobble(self, arrays: dict, gaussians, step: int, num_frames: int = 60):
+        """A camera wobble around the first context view: (file, dropped
+        pairs per frame)."""
+        return self._render_video(arrays, gaussians, *wobble_cameras(arrays, num_frames), "wobble", step)
+
+    def render_video_interpolation(self, arrays: dict, gaussians, step: int, num_frames: int = 30):
+        """From the first context view to the last: (file, dropped pairs
+        per frame)."""
+        return self._render_video(arrays, gaussians, *interpolation_cameras(arrays, num_frames), "interpolation", step)
+
+    def _render_video(self, arrays, gaussians, cameras, intrinsics, name, step):
+        """The batch's deterministic Gaussians (`arrays` on the wrapper's
+        device) rendered from each camera ((n, 4, 4) and (n, 3, 3) arrays)
+        at the first context view's near and far, logged as a video."""
+        device = self.wrapper.device
+        frames, overflow = render_frames(
+            self.wrapper.decoder, gaussians, torch.tensor(np.asarray(cameras), dtype=torch.float32, device=device),
+            torch.tensor(np.asarray(intrinsics), dtype=torch.float32, device=device),
+            arrays["context"]["near"][0, 0], arrays["context"]["far"][0, 0], tuple(arrays["context"]["image"].shape[-2:]),
+        )
+        return self.logger.log_video(f"video/{name}", _host(frames), step=step), overflow
 
     # ------------------------------------------------------------------
     def test(self, chunk_size: int = 32) -> dict:

@@ -1,7 +1,6 @@
-"""Local logger: scalars to JSONL, images to PNG.
+"""Local logger: scalars to JSONL, images to PNG, videos to MP4 or GIF.
 
-Port of `pixelsplat_tpu/utils/local_logger.py` (videos come with the
-trainer's validation in a later slice).
+Port of `pixelsplat_tpu/utils/local_logger.py`.
 """
 
 from __future__ import annotations
@@ -12,6 +11,8 @@ from typing import Optional
 
 import numpy as np
 from PIL import Image
+
+from .video import save_video
 
 LOG_PATH = Path("outputs/local")
 
@@ -39,6 +40,11 @@ class LocalLogger:
         directory = self.path / key
         directory.mkdir(exist_ok=True, parents=True)
         Image.fromarray(img).save(directory / f"{step or 0:0>6}.png")
+
+    def log_video(self, key: str, frames: np.ndarray, step: Optional[int] = None, fps: int = 30) -> Path:
+        """frames: (t, 3, h, w) float [0,1]; an MP4 through ffmpeg when it is
+        on PATH, else a GIF (`utils/video.py`). Returns the file written."""
+        return save_video(np.asarray(frames), self.path / key / f"{step or 0:0>6}.mp4", fps=fps)
 
     def log_model(self, checkpoint_path, step: Optional[int] = None) -> None:
         """Nothing to do locally: the checkpoint already lives on disk."""

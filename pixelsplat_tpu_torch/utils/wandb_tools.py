@@ -1,7 +1,7 @@
 """wandb integration, used when the `wandb` package imports.
 
 Port of `pixelsplat_tpu/utils/wandb_tools.py`: `select_logger` returns a
-`WandbLogger` (scalars, images and checkpoint artifacts through wandb,
+`WandbLogger` (scalars, images, videos and checkpoint artifacts through wandb,
 everything also written by the wrapped `LocalLogger`) when wandb imports
 and `wandb.mode` is not `disabled`, else the `LocalLogger`.
 `update_checkpoint_path` passes plain paths through and refuses the JAX
@@ -37,7 +37,7 @@ def update_checkpoint_path(path: Optional[Union[str, Path]], wandb_cfg=None) -> 
 
 
 class WandbLogger:
-    """`LocalLogger`'s interface through wandb: scalars, images and
+    """`LocalLogger`'s interface through wandb: scalars, images, videos and
     checkpoint artifacts (the reference's `log_model="all"`). The wrapped
     LocalLogger writes everything too, so a dropped connection loses no
     local copy."""
@@ -69,6 +69,13 @@ class WandbLogger:
         self.local.log_image(key, image, step=step)
         if self.run is not None:
             wandb.log({key: wandb.Image(str(self.local.path / key / f"{step or 0:0>6}.png"))}, step=step)
+
+    def log_video(self, key: str, frames, step=None, fps: int = 30) -> Path:
+        path = self.local.log_video(key, frames, step=step, fps=fps)
+        if self.run is not None:
+            # wandb.Video reads the encoded file, an MP4 or the GIF.
+            wandb.log({key: wandb.Video(str(path), fps=fps)}, step=step)
+        return path
 
     def log_model(self, checkpoint_path, step=None) -> None:
         """Upload a checkpoint file as a model artifact."""

@@ -1,8 +1,7 @@
-"""Image composition: hcat / vcat / add_border (numpy).
+"""Image composition: overlay / hcat / vcat / add_border / resize (numpy).
 
-The port's own copy of the part of `pixelsplat_tpu/visualization/layout.py`
-that the validation grid calls. Images are host-side numpy arrays shaped
-(channel, height, width) in [0, 1].
+The port's own copy of `pixelsplat_tpu/visualization/layout.py`. Images are
+host-side numpy arrays shaped (channel, height, width) in [0, 1].
 """
 
 from __future__ import annotations
@@ -10,6 +9,7 @@ from __future__ import annotations
 from typing import Iterable, Literal, Union
 
 import numpy as np
+from PIL import Image
 
 Alignment = Literal["start", "center", "end"]
 Axis = Literal["horizontal", "vertical"]
@@ -31,6 +31,24 @@ def _intersperse(iterable, delimiter):
     for item in it:
         yield delimiter
         yield item
+
+
+def overlay(
+    main: np.ndarray,
+    overlay_img: np.ndarray,
+    main_offset: tuple[int, int],
+    overlay_offset: tuple[int, int],
+) -> np.ndarray:
+    """`overlay_img` from `overlay_offset` on, pasted into `main` at
+    `main_offset` and cut at `main`'s edges."""
+    main = main.copy()
+    mo_r, mo_c = main_offset
+    oo_r, oo_c = overlay_offset
+    _, h, w = overlay_img.shape
+    main[:, mo_r : mo_r + h, mo_c : mo_c + w] = overlay_img[:, oo_r:, oo_c:][
+        :, : main.shape[1] - mo_r, : main.shape[2] - mo_c
+    ]
+    return main
 
 
 def cat(
@@ -102,3 +120,27 @@ def add_border(image: np.ndarray, border: int = 8, color: Color = 1.0) -> np.nda
     out = np.ones((c, h + 2 * border, w + 2 * border), np.float32) * color_arr
     out[:, border : border + h, border : border + w] = image
     return out
+
+
+def resize(
+    image: np.ndarray,
+    shape: tuple[int, int] | None = None,
+    width: int | None = None,
+    height: int | None = None,
+) -> np.ndarray:
+    """Lanczos resize through 8-bit PIL to `shape` (h, w), or to `width` or
+    `height` keeping the aspect ratio."""
+    c, h, w = image.shape
+    assert (shape is not None) + (width is not None) + (height is not None) == 1
+    if width is not None:
+        shape = (int(h * width / w), width)
+    elif height is not None:
+        shape = (height, int(w * height / h))
+    img = (np.clip(image, 0, 1) * 255).astype(np.uint8).transpose(1, 2, 0)
+    if img.shape[-1] == 1:
+        img = img[..., 0]
+    resized = Image.fromarray(img).resize((shape[1], shape[0]), Image.LANCZOS)
+    out = np.asarray(resized, np.float32) / 255.0
+    if out.ndim == 2:
+        out = out[..., None]
+    return out.transpose(2, 0, 1)

@@ -304,11 +304,20 @@ def test_main_refuses_what_it_cannot_run(port_checkpoint, tmp_path, monkeypatch)
         pt_main.main(PROTOCOL + [f"checkpointing.load={tmp_path / 'orbax'}"], device="cpu")
     with pytest.raises(ValueError, match="wandb"):
         pt_main.main(PROTOCOL + ["checkpointing.load=wandb://run:v1"], device="cpu")
-    # The one option the port does not run yet (ROADMAP queue 1 item 7)
-    # loads into the config and fails the run. `use_transmittance` runs: a
-    # checkpoint of another model fails only its strict load.
-    with pytest.raises(NotImplementedError, match="extended_visualization"):
-        pt_main.main(train_argv + ["train.extended_visualization=true", f"output_dir={tmp_path / 'viz'}"], device="cpu")
+    # `train.extended_visualization` runs (test_torch_extended_validation.py
+    # holds its figures and videos against the JAX package): with a
+    # validation after the step, main writes the Gaussian projections, the
+    # camera diagram and both videos (at 32x32 views: the projections are
+    # 256x256 whatever the views, on the CPU's plain compositor).
+    # `use_transmittance` runs: a checkpoint of another model fails only
+    # its strict load.
+    viz = tmp_path / "viz" / "local"
+    pt_main.main(train_argv + ["train.extended_visualization=true", "trainer.val_check_interval=1",
+                               "dataset.image_shape=[32,32]", f"output_dir={viz.parent}"], device="cpu")
+    for key in ("projections", "cameras", "encoder/attention"):
+        assert (viz / key / "000001.png").is_file(), key
+    for name in ("wobble", "interpolation"):
+        assert [p.name for p in (viz / "video" / name).iterdir()] in (["000001.gif"], ["000001.mp4"]), name
     with pytest.raises(RuntimeError, match="size mismatch"):
         pt_main.main(
             ["+experiment=re10k_ablation_no_probabilistic_sampling", "mode=test", f"checkpointing.load={path}"],

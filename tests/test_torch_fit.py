@@ -378,13 +378,20 @@ def test_main_trains_the_recipe_with_lpips(train_root, tmp_path, monkeypatch):
 
 def test_main_train_refusals(train_root, tmp_path):
     """The LPIPS loss demands its exported weights unless random ones are
-    allowed, and the extended visualizations are not ported yet."""
+    allowed; the extended visualization runs, and writes the projections,
+    the camera diagram and both videos at the validation."""
     with pytest.raises(FileNotFoundError, match="LPIPS weights"):
         pt_main.main(train_argv(train_root, tmp_path / "a"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        pt_main.main(train_argv(train_root, tmp_path / "b", "loss=[mse]", "train.extended_visualization=true"),
-                     device="cpu")
-    assert not (tmp_path / "b" / "checkpoints").exists()
+    assert not (tmp_path / "a" / "checkpoints").exists()
+    state = pt_main.main(train_argv(train_root, tmp_path / "b", "loss=[mse]", "train.extended_visualization=true",
+                                    "trainer.max_steps=1", "trainer.val_check_interval=1", "dataset.image_shape=[32,32]"),
+                         device="cpu")
+    assert state.step == 1 and (tmp_path / "b" / "checkpoints" / "step_1").is_file()
+    local = tmp_path / "b" / "local"
+    for key in ("comparison", "projections", "cameras", "encoder/gaussians"):
+        assert (local / key / "000001.png").is_file(), key
+    for name in ("wobble", "interpolation"):
+        assert [p.name for p in (local / "video" / name).iterdir()] in (["000001.gif"], ["000001.mp4"]), name
 
 
 WORKER_STEP = r"""

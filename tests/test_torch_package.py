@@ -49,6 +49,7 @@ def test_import_without_cuda_or_nvcc(tmp_path):
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'pixelsplat_tpu_torch.')]\n"
         "[importlib.import_module(n) for n in names]\n"
         "import sys; assert 'jax' not in sys.modules and 'pixelsplat_tpu' not in sys.modules\n"
+        "assert 'matplotlib' not in sys.modules  # the GPU machine has none: imported only where drawn\n"
         "assert 'optax' not in sys.modules and 'flax' not in sys.modules\n"
         "from pixelsplat_tpu_torch.training.model_wrapper import ModelWrapper, TrainCfg, TrainState\n"
         "for n in ('training.optimizer', 'training.checkpoint', 'loss.loss_lpips', 'evaluation.lpips',\n"
@@ -69,7 +70,8 @@ def test_import_without_cuda_or_nvcc(tmp_path):
         "          'parallel.mesh', 'parallel.render', 'utils.shape_checks', 'interop.pretrained',\n"
         "          'evaluation.evaluation_cfg', 'evaluation.metric_computer', 'evaluation.evaluation_index_generator',\n"
         "          'scripts.compute_metrics', 'scripts.generate_evaluation_index',\n"
-        "          'scripts.generate_video_evaluation_index'):\n"
+        "          'scripts.generate_video_evaluation_index', 'visualization.validation_in_3d',\n"
+        "          'model.encoder.visualization.encoder_visualizer_epipolar', 'scripts.test_splatter'):\n"
         "    assert 'pixelsplat_tpu_torch.' + n in names, n\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()  # importing parallel/ creates no process group\n"
@@ -197,6 +199,7 @@ PRODUCTION_SLICE_SOURCES = [
     "ops/rasterizer/composite_ablation.py",
     "scripts/bench_kernel_ablation.py",
     "scripts/bench_segment_sum.py",
+    "scripts/check_alpha_threshold.py",
     "scripts/check_composite_bwd.py",
     "scripts/kernel_smoke.py",
     "utils/pairings.py",
@@ -295,3 +298,55 @@ def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
     source.write_text(source.read_text() + "\n// edited\n")
     assert kernel_build.library_path("smoke_scale").name != after["smoke_scale"]
 
+
+
+# The extended visualization, the PLY writer and the smoke scripts.
+VISUALIZATION_SLICE_SOURCES = [
+    "visualization/colors.py",
+    "visualization/color_map.py",
+    "visualization/layout.py",
+    "visualization/validation_in_3d.py",
+    "visualization/drawing/__init__.py",
+    "visualization/drawing/types.py",
+    "visualization/drawing/coordinate_conversion.py",
+    "visualization/drawing/rendering.py",
+    "visualization/drawing/lines.py",
+    "visualization/drawing/points.py",
+    "visualization/drawing/cameras.py",
+    "visualization/camera_trajectory/__init__.py",
+    "visualization/camera_trajectory/wobble.py",
+    "visualization/camera_trajectory/interpolation.py",
+    "visualization/camera_trajectory/spin.py",
+    "model/encoder/visualization/__init__.py",
+    "model/encoder/visualization/encoder_visualizer_epipolar.py",
+    "model/ply_export.py",
+    "utils/video.py",
+    "scripts/test_splatter.py",
+    "scripts/visualize_epipolar_lines.py",
+]
+
+
+def module_level_imports(path: Path) -> set[str]:
+    """Top-level packages a module imports when it is imported (its body,
+    and the bodies of top-level if / try blocks), not inside functions."""
+    names = set()
+    pending = list(ast.parse(path.read_text(), filename=str(path)).body)
+    while pending:
+        node = pending.pop()
+        if isinstance(node, ast.Import):
+            names |= {alias.name.split(".")[0] for alias in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module.split(".")[0])
+        elif isinstance(node, (ast.If, ast.Try)):
+            pending += node.body + node.orelse + getattr(node, "finalbody", [])
+            pending += [n for handler in getattr(node, "handlers", []) for n in handler.body]
+    return names
+
+
+@pytest.mark.parametrize("relative", VISUALIZATION_SLICE_SOURCES)
+def test_visualization_slice_sources_exist_and_are_checked(relative):
+    path = PORT / relative
+    assert path.exists()
+    assert path in port_sources()  # so the import-isolation test reads it
+    assert not imported_top_levels(path) & FORBIDDEN
+    assert "matplotlib" not in module_level_imports(path)

@@ -30,7 +30,13 @@ from pixelsplat_tpu_torch import kernel_build
 from pixelsplat_tpu_torch.ops import kernel_tools
 from pixelsplat_tpu_torch.ops.rasterizer import composite_ablation
 from pixelsplat_tpu_torch.ops.rasterizer import composite_kernel as pt_kernel
-from pixelsplat_tpu_torch.scripts import bench_kernel_ablation, bench_segment_sum, bench_tool_kernels, kernel_smoke
+from pixelsplat_tpu_torch.scripts import (
+    bench_kernel_ablation,
+    bench_segment_sum,
+    bench_tool_kernels,
+    check_alpha_threshold,
+    kernel_smoke,
+)
 
 from test_torch_encoder import t
 from test_torch_rasterizer import composite_case
@@ -295,6 +301,26 @@ def test_tool_scene_lists_small():
     lists = (table, tiles.flat, tiles.block_start, tiles.counts)
     _, _, n_full = composite_ablation.composite_core_ablation("full", *lists, tiles_x)
     assert torch.equal(n_full, (tiles.counts + 127) // 128)
+
+
+def test_alpha_threshold_lists_crowd_the_threshold():
+    """`check_alpha_threshold`'s lists: 256 tiles of two full chunks whose
+    Gaussians put many (slot, pixel) pairs within 1 % of alpha = 1/255 while
+    T stays near 1; on the CPU the wrapper runs the plain version, so the
+    check finds nothing."""
+    table, flat, block_start, counts = check_alpha_threshold.crowded_lists(0, "cpu")
+    assert table.shape == (256 * 256 + 1, 12) and not bool(table[-1].any())
+    assert counts.tolist() == [256] * 256 and block_start.tolist() == list(range(0, 512, 2))
+    acc, trans, n_proc = pt_kernel.composite_core_plain(table, flat, block_start, counts, 16, 128)
+    assert n_proc.tolist() == [2] * 256 and float(trans.min()) > 0.1
+    rows = table[flat[:256].long()]  # tile 0's Gaussians
+    px = torch.arange(256) % 16
+    py = torch.arange(256) // 16
+    dx, dy = px[None] - rows[:, 0, None], py[None] - rows[:, 1, None]
+    power = -0.5 * (rows[:, 2, None] * dx * dx + rows[:, 4, None] * dy * dy) - rows[:, 3, None] * dx * dy
+    alpha = rows[:, 5, None] * torch.exp(power)
+    assert int(((alpha * 255 - 1).abs() < 0.01).sum()) > 100
+    assert check_alpha_threshold.check(1, "cpu") == dict(pixels_beyond=0, tiles_n_proc_differ=0, max_abs_err=0.0)
 
 
 # ---------------------------------------------------------------------------
