@@ -190,6 +190,30 @@ Phases, each reported on its own lines; any failure exits non-zero:
    0 against the CPU port) and `scripts/visualize_epipolar_lines.py` (card
    against CPU, no kernel).
 
+14. paper: the reference-checkpoint route and the paper's scripts, `re10k`
+   at full width with seeded random weights on the fixture's first scene.
+   A Lightning `.ckpt` of the encoder in the published layout
+   (`num_batches_tracked` counters, `global_step`) is loaded directly
+   (`interop/torch_import.py`) and imported (`scripts/import_checkpoint.py`)
+   then read through `checkpointing.load`: both equal the source bit for
+   bit, the step kept. `scripts/run_parity_eval.py` on the `.ckpt` over the
+   fixture's index (its gate reads FAIL on random weights; K1 6 times, 0
+   dropped pairs). The figures through their scripts at their default
+   resolutions: the point cloud at 1024 (K1 3 + 4 times: three orthographic
+   passes and the decoder's colour and depth renders of both context
+   views), the sampling figure at 1536 with 2,048 samples per ray (K1 3
+   times; the density volume in plain PyTorch), the attention and epipolar
+   sampling figures (no kernel). Prints per figure the Gaussians after the
+   trim, the pairs the JAX package's fixed settings would drop, the
+   settings rendered at, dropped pairs (must be 0), K1's launches against
+   the count the script implies and the wall time; K1 against its plain
+   version on the densest figure render's lists, its time against its
+   bound. The tables and comparison grids over `[eval_protocol]`'s PNGs and
+   benchmark files and `[eval_tools]`' metrics, and the launch commands.
+   Then both compositing kernels against their plain versions on lists
+   crowded at each alpha cut (`scripts/check_alpha_threshold.py`: alpha =
+   1/255, the 0.99 clamp, power = 0): pixels and d_table rows beyond 1e-5.
+
 Every kernel's launch count is set to 0 just before each path is driven
 and read just after it. The run ends with the card line, a JSON record of
 the five kernels and {"ok": true, "device": {...}}.
@@ -2262,6 +2286,366 @@ def visualization_phase(torch, kernels) -> dict:
     return result
 
 
+# The paper's figures and tables, and the reference-checkpoint route, on
+# the fixture's first scene at `re10k`'s full width (random weights).
+PAPER_DIR = ROOT / "build" / "chip_smoke" / "paper"
+PAPER_SCENE = ("fixture_scene_a", 0, 5)
+PAPER_FAR = {"point_cloud": 30.0, "sampling": 30.0}
+PAPER_ANGLE = 60.0
+# The scripts' default resolutions: the point cloud's, the sampling figure's.
+PAPER_RESOLUTIONS = (1024, 1536)
+LIGHTNING_STEP = 123456
+# Lists crowded at each alpha cut, per family, for both compositing kernels.
+ALPHA_CUT_SEEDS = 20
+
+
+def lightning_checkpoint(torch, path: Path, encoder) -> None:
+    """`encoder`'s weights as the published `.ckpt` lays them out
+    (`tests/test_parity_runbook.py::_lightning_checkpoint`): `encoder.*`
+    entries of `state_dict` with BatchNorm's `num_batches_tracked` beside
+    every frozen BatchNorm's statistics, `global_step`, Lightning's other
+    top-level entries and Adam's state."""
+    state_dict = {}
+    for k, v in encoder.state_dict().items():
+        state_dict[f"encoder.{k}"] = v.detach().cpu()
+        if k.endswith(".running_var"):
+            state_dict[f"encoder.{k[: -len('running_var')]}num_batches_tracked"] = torch.tensor(0)
+    params = list(encoder.parameters())
+    torch.save({
+        "epoch": 3, "global_step": LIGHTNING_STEP, "pytorch-lightning_version": "2.1.0", "state_dict": state_dict,
+        "loops": {"fit_loop": {"epoch_progress": {}}}, "callbacks": {"ModelCheckpoint": {"best_model_score": None}},
+        "optimizer_states": [{
+            "state": {i: {"step": torch.tensor(float(LIGHTNING_STEP)), "exp_avg": torch.zeros(p.shape),
+                          "exp_avg_sq": torch.zeros(p.shape)} for i, p in enumerate(params)},
+            "param_groups": [{"lr": 1.5e-4, "betas": (0.9, 0.999), "params": list(range(len(params)))}],
+        }],
+        "lr_schedulers": [{"_step_count": LIGHTNING_STEP + 1, "lr_lambdas": [None]}],
+        "hparams_name": "kwargs", "hyper_parameters": {},
+    }, path)
+
+
+def paper_evaluation_overlay(index: dict, frames: Path) -> str:
+    """A config/evaluation overlay over the fixture: `[eval_protocol]`'s
+    PNGs as the one method, both scenes highlighted at their first target;
+    returned as its path without `.yaml`."""
+    highlighted = "\n".join(f"    - scene: {s}\n      target_index: {e['target'][0]}" for s, e in index.items())
+    path = PAPER_DIR / "fixture_evaluation.yaml"
+    path.write_text(
+        f"dataset:\n  view_sampler:\n    index_path: {FIXTURE / 'evaluation_index_fixture.json'}\n"
+        f"evaluation:\n  methods:\n    - name: pixelSplat (port)\n      key: ours\n      path: {frames}\n"
+        f"  side_by_side_path: null\n  animate_side_by_side: false\n  highlighted:\n{highlighted}\n"
+    )
+    return str(path.with_suffix(""))
+
+
+class StageTimes:
+    """Within the block, each call of the functions `targets` names
+    ((module, name) pairs) is timed on the host clock between two device
+    syncs and summed under its name."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets, self.ms, self.originals = torch, targets, {}, []
+
+    def __enter__(self) -> dict:
+        for module, name in self.targets:
+            fn = getattr(module, name)
+
+            def timed(*args, _fn=fn, _name=name, **kwargs):
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    self.torch.cuda.synchronize()
+                    self.ms[_name] = self.ms.get(_name, 0.0) + 1e3 * (time.perf_counter() - t0)
+
+            self.originals.append((module, name, fn))
+            setattr(module, name, timed)
+        return self.ms
+
+    def __exit__(self, *exc) -> None:
+        for module, name, fn in self.originals:
+            setattr(module, name, fn)
+
+
+def paper_phase(torch, kernels) -> dict:
+    """The reference-checkpoint loader and import script, the parity
+    runbook, every paper figure and table, and the launch commands, as a
+    user runs them (the figures at their default resolutions); K1 against
+    its plain version on the densest figure render, with its time against
+    its bound; both compositing kernels on lists crowded at the three alpha
+    cuts."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from pixelsplat_tpu_torch.config import load_config
+    from pixelsplat_tpu_torch.interop.torch_import import load_lightning_checkpoint
+    from pixelsplat_tpu_torch.model.encoder.encoder_epipolar import EncoderEpipolar
+    from pixelsplat_tpu_torch.ops.rasterizer import composite_kernel
+    from pixelsplat_tpu_torch.ops.rasterizer.composite import pack_columns
+    from pixelsplat_tpu_torch.ops.rasterizer.projection import pack_gaussians_soa
+    from pixelsplat_tpu_torch.ops.rasterizer.render import orthographic_frustum, project_and_bin
+    from pixelsplat_tpu_torch.paper import common as paper_common
+    from pixelsplat_tpu_torch.paper import (
+        generate_3_view_image_comparison, generate_ablation_image_comparison, generate_attention_figure,
+        generate_benchmark_table, generate_comparison_table, generate_epipolar_sampling_figure,
+        generate_image_comparison, generate_point_cloud_figure, generate_sampling_figure,
+    )
+    from pixelsplat_tpu_torch.scripts import check_alpha_threshold, dump_launch_configs, import_checkpoint
+    from pixelsplat_tpu_torch.scripts import run_parity_eval
+    from pixelsplat_tpu_torch.scripts.eval_scene import card_line, cuda_ms, init_random_weights
+    from pixelsplat_tpu_torch.training.checkpoint import load_checkpoint
+
+    card, device, sync = card_line(), "cuda", torch.cuda.synchronize
+    pc_resolution, sampling_resolution = PAPER_RESOLUTIONS
+    shutil.rmtree(PAPER_DIR, ignore_errors=True)
+    PAPER_DIR.mkdir(parents=True)
+    dataset = [f"dataset.roots=[{FIXTURE / 're10k'}]"]
+    cfg = load_config(["+experiment=re10k", "mode=test", *dataset])
+    result = {"launches": {}, "figures": {}}
+
+    # 1. The two load routes: the `.ckpt` read directly, and imported into a
+    #    checkpoint of the port that `checkpointing.load` reads.
+    source = EncoderEpipolar(cfg.model.encoder).to(device).eval()
+    init_random_weights(source, torch.Generator(device=device).manual_seed(SEED + 13))
+    ckpt = PAPER_DIR / "re10k_random.ckpt"
+    t0 = time.perf_counter()
+    lightning_checkpoint(torch, ckpt, source)
+    direct = EncoderEpipolar(cfg.model.encoder).to(device).eval()
+    step = load_lightning_checkpoint(ckpt, direct)
+    imported = import_checkpoint.main([str(ckpt), str(PAPER_DIR / "imported"), "--device", device, "+experiment=re10k",
+                                       *dataset])
+    load_cfg = load_config(["+experiment=re10k", "mode=test", *dataset, f"checkpointing.load={imported}"])
+    via_import, _ = paper_common.load_model(load_cfg, device)
+    sync()
+    load_s = time.perf_counter() - t0
+    want = source.state_dict()
+    unequal = [k for k, v in want.items()
+               if not (torch.equal(direct.state_dict()[k], v) and torch.equal(via_import.state_dict()[k], v))]
+    counters = sum(k.endswith(".running_var") for k in want)  # one num_batches_tracked each
+    imported_step = load_checkpoint(imported)["step"]
+    phase("paper", f"{ckpt.name}: {len(want)} encoder tensors + {counters} num_batches_tracked counters, global_step "
+          f"{LIGHTNING_STEP}; the direct load and the import ({imported.name}) read through checkpointing.load "
+          f"agree with the source bit for bit on {len(want) - len(unequal)}/{len(want)} tensors on the {device}; "
+          f"steps {step} / {imported_step}; {load_s:.1f} s")
+    if unequal or step != LIGHTNING_STEP or imported_step != LIGHTNING_STEP or not counters:
+        fail(f"paper: the load routes differ on {unequal[:5]}, steps {step} / {imported_step}, {counters} counters")
+    del source, direct, via_import
+
+    # 2. The parity runbook on the `.ckpt` over the fixture's evaluation index.
+    index = json.loads((FIXTURE / "evaluation_index_fixture.json").read_text())
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    summary = run_parity_eval.run([
+        "--ckpt", str(ckpt), "--data", str(FIXTURE / "re10k"), "--index", str(FIXTURE / "evaluation_index_fixture.json"),
+        "--output", str(PAPER_DIR / "parity"), "--device", device, "data_loader.test.num_workers=0",
+    ])
+    runbook_s = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    result["launches"]["paper run_parity_eval"] = launches
+    written = json.loads((PAPER_DIR / "parity" / "parity_summary.json").read_text())
+    phase("paper", f"run_parity_eval on {ckpt.name}: {summary['num_scenes']} scenes, PSNR {summary['psnr']:.4f} "
+          f"(published {run_parity_eval.PUBLISHED['re10k']['psnr']}), overflow pairs {summary['overflow_pairs']}, "
+          f"gate {'PASS' if summary['gate'] else 'FAIL (random weights: expected)'}; parity_summary.json written; "
+          f"launches {launches}; {runbook_s:.1f} s")
+    if written != summary or summary["num_scenes"] != len(index) or summary["overflow_pairs"] != 0 or \
+            launches["composite_fwd"] != 3 * len(index) or sum(launches.values()) != launches["composite_fwd"]:
+        fail(f"paper: the runbook's summary {summary}, launches {launches}")
+
+    # 3. The figures, each through its script's entry point.
+    scene, c0, c1 = PAPER_SCENE
+    model = [f"checkpointing.load={imported}", *dataset]
+    figures = {
+        "point_cloud": lambda: generate_point_cloud_figure.main([
+            "--output", str(PAPER_DIR / "point_clouds"), "--scene",
+            f"{scene}:{c0}:{c1}:{PAPER_FAR['point_cloud']}:{PAPER_ANGLE}", "--device", device, *model]),
+        "sampling": lambda: generate_sampling_figure.main([
+            "--output", str(PAPER_DIR / "sampling_figure"), "--scene", f"{scene}:{c0}:{c1}:{PAPER_FAR['sampling']}",
+            "--device", device, *model]),
+        "attention": lambda: generate_attention_figure.main([
+            "--output", str(PAPER_DIR / "attention.svg"), "--scene", f"{scene}:{c0}:{c1}", "--device", device, *model]),
+        "epipolar_sampling": lambda: generate_epipolar_sampling_figure.main([
+            "--output", str(PAPER_DIR / "epipolar_sampling.svg"), "--scene", f"{scene}:{c0}:{c1}", "--device", device,
+            *dataset]),
+    }
+    views = 2
+    want_k1 = {"point_cloud": 3 + 2 * views, "sampling": 3, "attention": 0, "epipolar_sampling": 0}
+    # The figures' stages, each timed where its script calls it.
+    stages = [(module, name) for module in (generate_point_cloud_figure, generate_sampling_figure)
+              for name in ("load_model", "load_scene", "encode_scene", "line_overlay_layers",
+                           "composite_depth_layers", "save_image")]
+    stages += [(generate_point_cloud_figure, "sufficient_settings"), (generate_point_cloud_figure, "render_orthographic"),
+               (generate_point_cloud_figure, "export_ply"), (generate_sampling_figure, "density_volume")]
+
+    def bin_view(p, settings):
+        """An orthographic figure render's view, binned at `settings`."""
+        means, covariances, harmonics, opacities = p["scene"]
+        e, k, n, _ = orthographic_frustum(*p["camera"].values())
+        soa = pack_gaussians_soa(means[0], covariances[0], opacities[0], harmonics=harmonics[0])
+        return project_and_bin(e[0], k[0], n[0], soa, image_shape=p["image_shape"], scale_invariant=False,
+                               settings=settings)
+
+    def decoder_dropped(dec, settings) -> int:
+        """The pairs `settings` drop from the point-cloud figure's context
+        depth renders."""
+        (e, k, n, _), (means, covariances, opacities) = dec["cameras"], dec["scene"]
+        soa = pack_gaussians_soa(means[0], covariances[0], opacities[0], colors_precomp=means.new_zeros((means.shape[1], 1)))
+        return sum(int(project_and_bin(e[0, i], k[0, i], n[0, i], soa, image_shape=dec["image_shape"],
+                                       scale_invariant=True, settings=settings)[1].overflow) for i in range(dec["views"]))
+
+    # What the JAX settings would drop is counted here, after each figure's
+    # run: the scripts grow the settings and drop nothing.
+    outputs, renders = {}, []
+    for name, run in figures.items():
+        sync()
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        with StageTimes(torch, stages) as stage_ms:
+            outputs[name] = run()
+        sync()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        launches = launch_counts(kernels)
+        result["launches"][f"paper {name}"] = launches
+        record = {"wall_ms": wall_ms, "k1": launches["composite_fwd"], "k1_expected": want_k1[name],
+                  "stages_ms": stage_ms}
+        line = f"{name}: wall {wall_ms:.1f} ms (model build and checkpoint read included); composite_fwd " \
+               f"{launches['composite_fwd']} (expected {want_k1[name]})"
+        if stage_ms:
+            line += f"; stages ms (host clock, device synced) {({k: round(v, 1) for k, v in stage_ms.items()})}"
+        passes = []
+        if name == "point_cloud":
+            (pc,) = outputs[name]
+            passes = pc["orthographic"]
+            dec = pc["decoder"]
+            record["decoder"] = {"jax_dropped": decoder_dropped(dec, dec["jax_settings"]), "dropped": dec["dropped"],
+                                 "capacity": dec["settings"].capacity, "big_capacity": dec["settings"].big_capacity}
+            line += f"; decoder's context depth renders: capacity {dec['settings'].capacity}, big list " \
+                    f"{dec['settings'].big_capacity}, the decoder's settings would drop " \
+                    f"{record['decoder']['jax_dropped']}, dropped {dec['dropped']}"
+            if dec["dropped"]:
+                fail(f"paper: the point-cloud figure's depth renders dropped {dec['dropped']} pairs")
+        elif name == "sampling":
+            passes = outputs[name]
+        for p in passes:
+            s, j = p["settings"], p["jax_settings"]
+            p["jax_dropped"] = int(bin_view(p, j)[1].overflow)
+            line += f"; orthographic {p['image_shape'][0]}x{p['image_shape'][1]}: {p['gaussians']} Gaussians after " \
+                    f"the trim, the JAX settings (capacity {j.capacity}, big list {j.big_capacity}) would drop " \
+                    f"{p['jax_dropped']} pairs, rendered at capacity {s.capacity}, big list {s.big_capacity}, pair " \
+                    f"budget {s.pair_budget}: dropped {p['dropped']}"
+            renders.append((name, p))
+            if any(p["dropped"]) or len(p["dropped"]) != 3:
+                fail(f"paper: {name} dropped {p['dropped']} pairs")
+        record["passes"] = [{k: p[k] for k in ("gaussians", "jax_dropped", "dropped")} | {
+            "capacity": p["settings"].capacity, "big_capacity": p["settings"].big_capacity} for p in passes]
+        result["figures"][name] = record
+        phase("paper", line)
+        if launches["composite_fwd"] != want_k1[name] or sum(launches.values()) != launches["composite_fwd"]:
+            fail(f"paper: {name} launched {launches}, expected composite_fwd {want_k1[name]}")
+
+    # Every figure file, finite and of its size.
+    pngs = {
+        "point_clouds": (sorted((PAPER_DIR / "point_clouds").glob("*.png")), 3),
+        "sampling_figure": (sorted((PAPER_DIR / "sampling_figure").glob("*.png")), 2),
+    }
+    sizes = {}
+    for folder, (paths, count) in pngs.items():
+        for path in paths:
+            sizes[path.name] = Image.open(path).size
+        if len(paths) != count:
+            fail(f"paper: {folder} holds {[p.name for p in paths]}")
+    if sizes[f"000000_{scene}_angle_{PAPER_ANGLE}.png"] != (pc_resolution,) * 2 or \
+            sizes["density.png"] != (sampling_resolution,) * 2:
+        fail(f"paper: figure sizes {sizes}")
+    ply = PAPER_DIR / "point_clouds" / f"000000_{scene}" / "gaussians.ply"
+    attention = outputs["attention"]
+    svgs = {name: (PAPER_DIR / f"{name}.svg").read_text() for name in ("attention", "epipolar_sampling")}
+    phase("paper", f"files: {sizes}; {ply.name} {ply.stat().st_size} bytes; attention maps {attention.shape} "
+          f"(layer, tokens, head, 1, samples), finite {bool(np.isfinite(attention).all())}; SVGs "
+          f"{({k: v.count('<image') for k, v in svgs.items()})} images, {svgs['attention'].count('<line')} lines")
+    if not ply.stat().st_size or not np.isfinite(attention).all() or \
+            any(v.count("<image") != 2 for v in svgs.values()) or "&#8734;" not in svgs["epipolar_sampling"]:
+        fail("paper: a figure file is missing, empty or not finite")
+
+    # K1 on the densest figure render's lists, against its plain version.
+    densest = None
+    for name, p in renders:
+        projected, tiles = bin_view(p, p["settings"])
+        slots = int(tiles.counts.sum())
+        if densest is None or slots > densest[0]:
+            densest = (slots, name, projected, tiles, p["settings"], p["image_shape"][1])
+    slots, name, projected, tiles, settings, width = densest
+    table = pack_columns(projected).contiguous()
+    tiles_x = -(-width // settings.tile_size)
+    scale = max(1.0, float(table[:, 6:].abs().max()))
+    err, n_k = check_kernel_against_plain(composite_kernel, f"paper {name}", tiles, table, settings.chunk, tiles_x)
+    if err > KERNEL_ATOL * scale:
+        fail(f"paper: composite_fwd on the {name} figure's lists: {err:.3g} > {KERNEL_ATOL} x {scale:.3g}")
+    args = (table, tiles.flat, tiles.block_start, tiles.counts, tiles_x, settings.chunk)
+    bound, by = composite_bound_ms(tiles, table, n_k, settings.chunk)
+    k1 = dict(figure=name, ms=cuda_ms(lambda: composite_kernel.composite_core(*args), iters=10),
+              plain_ms=cuda_ms(lambda: composite_kernel.composite_core_plain(*args), iters=1, warmup=1),
+              bound_ms=bound, bound_by=by, slots=slots, max_tile=int(tiles.counts.max()), tiles=tiles.counts.numel(),
+              max_abs_err=err)
+    result["k1"] = k1
+    phase("timing", f"paper {name} (densest figure render) | {card} | composite_fwd {k1['ms']:.4f} ms, plain "
+          f"{k1['plain_ms']:.3f} ms, bound {bound:.4f} ms ({by}); list slots {slots} over {k1['tiles']} tiles, "
+          f"longest tile {k1['max_tile']}, capacity {settings.capacity}")
+    del renders, densest, projected, tiles, table, outputs
+
+    # 4. The tables and comparison figures over what earlier phases wrote:
+    #    [eval_protocol]'s PNGs and benchmark files, [eval_tools]' metrics.
+    frames = EVAL_TOOLS_DIR / "frames"
+    generate_benchmark_table.main([f"port={frames}", str(PAPER_DIR / "benchmark.tex")])
+    generate_comparison_table.main([str(EVAL_TOOLS_DIR / "metrics.json"), str(PAPER_DIR / "comparison.tex")])
+    overlay = paper_evaluation_overlay(index, frames)
+    grid_args = [f"dataset.roots=[{FIXTURE / 're10k'}]"]
+    rows, names = generate_image_comparison.collect_rows(["re10k"], grid_args, overlay)
+    generate_image_comparison.generate_image_grid(rows, names, PAPER_DIR / "image_comparison.svg")
+    generate_3_view_image_comparison.main(["--output", str(PAPER_DIR / "image_comparison_3_view.svg"),
+                                           "--evaluation", overlay, *grid_args])
+    generate_ablation_image_comparison.main(["--output", str(PAPER_DIR / "ablation.svg"), "--evaluation", overlay,
+                                             *grid_args])
+    tables = {name: (PAPER_DIR / name).read_text() for name in ("benchmark.tex", "comparison.tex")}
+    grids = {name: (PAPER_DIR / name).read_text().count("<image")
+             for name in ("image_comparison.svg", "image_comparison_3_view.svg", "ablation.svg")}
+    phase("paper", f"tables: benchmark.tex {tables['benchmark.tex'].count(chr(10)) + 1} lines "
+          f"({'encoder (ms)' in tables['benchmark.tex']}), comparison.tex {tables['comparison.tex'].count(chr(10)) + 1} "
+          f"lines; comparison grids' images {grids}")
+    want_grids = {"image_comparison.svg": len(index) * 4, "image_comparison_3_view.svg": len(index) * 5,
+                  "ablation.svg": len(index)}
+    if grids != want_grids or "encoder (ms)" not in tables["benchmark.tex"] or "PSNR" not in tables["comparison.tex"] \
+            or any(row[-1] is None for row in rows):
+        fail(f"paper: tables or grids wrong: {grids} (expected {want_grids})")
+
+    # 5. The launch commands.
+    commands = dump_launch_configs.render()
+    phase("paper", f"dump_launch_configs: {len(dump_launch_configs.LAUNCHES)} commands, torchrun line: "
+          f"{dump_launch_configs.LAUNCHES['train re10k (8 GPUs)']}")
+    if "torchrun --nproc_per_node" not in commands or "pixelsplat_tpu_torch.main" not in commands:
+        fail("paper: dump_launch_configs printed no torchrun or main line")
+
+    # Both compositing kernels on lists crowded at each alpha cut.
+    cuts = {}
+    for family in check_alpha_threshold.FAMILIES:
+        cuts[family] = check_alpha_threshold.check(ALPHA_CUT_SEEDS, device, family)
+        c = cuts[family]
+        phase("alpha_cuts", f"{family}: {ALPHA_CUT_SEEDS} seeds x 256 tiles x 256 slots: composite_fwd pixels beyond "
+              f"{check_alpha_threshold.ATOL}: {c['pixels_beyond']} (max |acc| err {c['max_abs_err']:.3g}, tiles "
+              f"whose n_proc differs {c['tiles_n_proc_differ']}); composite_bwd rows of d_table beyond "
+              f"{check_alpha_threshold.ATOL} of their column's max: {c['bwd_rows_beyond']} (max "
+              f"{c['bwd_max_rel_err']:.3g})")
+        if c["pixels_beyond"] or c["tiles_n_proc_differ"] or c["bwd_rows_beyond"]:
+            fail(f"alpha_cuts: on the {family} lists composite_fwd has {c['pixels_beyond']} pixels beyond "
+                 f"{check_alpha_threshold.ATOL} (max {c['max_abs_err']:.3g}) and {c['tiles_n_proc_differ']} tiles "
+                 f"whose n_proc differs; composite_bwd has {c['bwd_rows_beyond']} rows beyond "
+                 f"{check_alpha_threshold.ATOL} (max {c['bwd_max_rel_err']:.3g})")
+    result["alpha_cuts"] = cuts
+    return result
+
+
 def gc_cuda(torch) -> None:
     import gc
 
@@ -2353,6 +2737,9 @@ def main() -> None:
     # 13. training's extended visualization through the CLI, and the smoke scripts
     visualization = visualization_phase(torch, kernels)
 
+    # 14. the reference-checkpoint route, the parity runbook, the paper's figures and tables
+    paper = paper_phase(torch, kernels)
+
     by_path = {"tools": {name: smoke_launches[name] + tools["launches"][name] for name in kernels}}
     by_path["eval_protocol"] = protocol["launches"]
     by_path.update(training["launches"])
@@ -2361,6 +2748,7 @@ def main() -> None:
     by_path["native re10k_3_view eval_protocol"] = native["launches"]
     by_path.update(distributed["launches"])
     by_path.update(visualization["launches"])
+    by_path.update(paper["launches"])
     for model, r in results.items():
         for path, counts in r["launches"].items():
             by_path[f"{model} {path}"] = counts
@@ -2394,6 +2782,9 @@ def main() -> None:
                                            bound_by=x["k1_bound"][1]) for m, x in experiments["scenes"].items()},
                 **depth_numbers(training["depth_fwd"]),
                 visualization=visualization["k1"],
+                paper=dict(densest=paper["k1"], figures=paper["figures"]),
+                alpha_cuts={f: {k: c[k] for k in ("pixels_beyond", "tiles_n_proc_differ", "max_abs_err")}
+                            for f, c in paper["alpha_cuts"].items()},
             ),
             entry(
                 "composite_bwd", "composite_bwd.cu", "pixelsplat_tpu/ops/rasterizer/pallas_backward.py:234",
@@ -2409,6 +2800,8 @@ def main() -> None:
                 **depth_numbers(training["depth_bwd"]), depth_max_rel_err=training["depth_bwd"][5],
                 experiments_view0={m: dict(ms=x["k2_ms"], plain_ms=x["k2_plain_ms"], bound_ms=x["k2_bound"][0],
                                            bound_by=x["k2_bound"][1]) for m, x in experiments["steps"].items()},
+                alpha_cuts={f: {k: c[k] for k in ("bwd_rows_beyond", "bwd_max_rel_err")}
+                            for f, c in paper["alpha_cuts"].items()},
             ),
             entry(
                 "copy_rows", "copy_rows.cu", "tools/bench_segment_sum.py:112",

@@ -71,7 +71,11 @@ def test_import_without_cuda_or_nvcc(tmp_path):
         "          'evaluation.evaluation_cfg', 'evaluation.metric_computer', 'evaluation.evaluation_index_generator',\n"
         "          'scripts.compute_metrics', 'scripts.generate_evaluation_index',\n"
         "          'scripts.generate_video_evaluation_index', 'visualization.validation_in_3d',\n"
-        "          'model.encoder.visualization.encoder_visualizer_epipolar', 'scripts.test_splatter'):\n"
+        "          'model.encoder.visualization.encoder_visualizer_epipolar', 'scripts.test_splatter',\n"
+        "          'interop.torch_import', 'scripts.import_checkpoint', 'scripts.run_parity_eval',\n"
+        "          'scripts.dump_launch_configs', 'paper', 'paper.common', 'paper.table',\n"
+        "          'paper.generate_point_cloud_figure', 'paper.generate_sampling_figure',\n"
+        "          'paper.generate_attention_figure', 'paper.generate_epipolar_sampling_figure'):\n"
         "    assert 'pixelsplat_tpu_torch.' + n in names, n\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()  # importing parallel/ creates no process group\n"
@@ -350,3 +354,51 @@ def test_visualization_slice_sources_exist_and_are_checked(relative):
     assert path in port_sources()  # so the import-isolation test reads it
     assert not imported_top_levels(path) & FORBIDDEN
     assert "matplotlib" not in module_level_imports(path)
+
+
+# The reference-checkpoint loader, the parity runbook, the paper figures and
+# tables, and the launch-command listing.
+TOOLING_SLICE_SOURCES = [
+    "interop/torch_import.py",
+    "scripts/import_checkpoint.py",
+    "scripts/run_parity_eval.py",
+    "scripts/dump_launch_configs.py",
+    "paper/__init__.py",
+    "paper/common.py",
+    "paper/table.py",
+    "paper/generate_benchmark_table.py",
+    "paper/generate_comparison_table.py",
+    "paper/generate_image_comparison.py",
+    "paper/generate_3_view_image_comparison.py",
+    "paper/generate_ablation_image_comparison.py",
+    "paper/generate_epipolar_sampling_figure.py",
+    "paper/generate_attention_figure.py",
+    "paper/generate_point_cloud_figure.py",
+    "paper/generate_sampling_figure.py",
+]
+
+
+@pytest.mark.parametrize("relative", TOOLING_SLICE_SOURCES)
+def test_tooling_slice_sources_exist_and_are_checked(relative):
+    path = PORT / relative
+    assert path.exists()
+    assert path in port_sources()  # so the import-isolation test reads it
+    assert not imported_top_levels(path) & FORBIDDEN
+    assert not module_level_imports(path) & {"matplotlib", "scipy"}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every file of the JAX package has one at the same path in the port,
+    but for the three ported under other names."""
+    jax_package = ROOT / "pixelsplat_tpu"
+    renamed = {
+        "ops/rasterizer/pallas_composite.py": "csrc/composite_fwd.cu",
+        "ops/rasterizer/pallas_backward.py": "csrc/composite_bwd.cu",
+        "ops/rasterizer/tile_gather.py": "ops/rasterizer/composite.py",
+    }
+    missing = [
+        str(p.relative_to(jax_package)) for p in sorted(jax_package.rglob("*.py"))
+        if "__pycache__" not in p.parts and not (PORT / p.relative_to(jax_package)).exists()
+    ]
+    assert sorted(missing) == sorted(renamed)
+    assert all((PORT / port).exists() for port in renamed.values())

@@ -304,23 +304,37 @@ def test_tool_scene_lists_small():
 
 
 def test_alpha_threshold_lists_crowd_the_threshold():
-    """`check_alpha_threshold`'s lists: 256 tiles of two full chunks whose
-    Gaussians put many (slot, pixel) pairs within 1 % of alpha = 1/255 while
-    T stays near 1; on the CPU the wrapper runs the plain version, so the
-    check finds nothing."""
-    table, flat, block_start, counts = check_alpha_threshold.crowded_lists(0, "cpu")
-    assert table.shape == (256 * 256 + 1, 12) and not bool(table[-1].any())
-    assert counts.tolist() == [256] * 256 and block_start.tolist() == list(range(0, 512, 2))
-    acc, trans, n_proc = pt_kernel.composite_core_plain(table, flat, block_start, counts, 16, 128)
-    assert n_proc.tolist() == [2] * 256 and float(trans.min()) > 0.1
-    rows = table[flat[:256].long()]  # tile 0's Gaussians
-    px = torch.arange(256) % 16
-    py = torch.arange(256) // 16
-    dx, dy = px[None] - rows[:, 0, None], py[None] - rows[:, 1, None]
-    power = -0.5 * (rows[:, 2, None] * dx * dx + rows[:, 4, None] * dy * dy) - rows[:, 3, None] * dx * dy
-    alpha = rows[:, 5, None] * torch.exp(power)
-    assert int(((alpha * 255 - 1).abs() < 0.01).sum()) > 100
-    assert check_alpha_threshold.check(1, "cpu") == dict(pixels_beyond=0, tiles_n_proc_differ=0, max_abs_err=0.0)
+    """`check_alpha_threshold`'s lists: 256 tiles of two full chunks. The
+    `threshold` family puts many (slot, pixel) pairs within 1 % of alpha =
+    1/255 while T stays near 1; `clamp` puts every pixel's own Gaussian
+    within 1e-5 of op exp(power) = 0.99; `power_cut` puts hundreds of
+    pairs within 1e-6 below power = 0 (and a few rounded above it). On the
+    CPU the wrappers run the plain versions, so the check finds nothing."""
+    crowded = {
+        "threshold": lambda power, raw: ((raw * 255 - 1).abs() < 0.01).sum() > 100,
+        "clamp": lambda power, raw: ((raw / check_alpha_threshold.MAX_ALPHA - 1).abs() < 1e-5).sum() == 256,
+        "power_cut": lambda power, raw: ((power > -1e-6) & (power <= 0)).sum() > 100 and (power > 0).any(),
+    }
+    assert tuple(crowded) == check_alpha_threshold.FAMILIES
+    for family, is_crowded in crowded.items():
+        table, flat, block_start, counts = check_alpha_threshold.crowded_lists(0, "cpu", family)
+        assert table.shape == (256 * 256 + 1, 12) and not bool(table[-1].any())
+        assert counts.tolist() == [256] * 256 and block_start.tolist() == list(range(0, 512, 2))
+        acc, trans, n_proc = pt_kernel.composite_core_plain(table, flat, block_start, counts, 16, 128)
+        assert n_proc.tolist() == [2] * 256, family  # no tile exits early
+        assert float(trans.min()) > (0.1 if family == "threshold" else 1e-3), family
+        rows = table[flat[:256].long()]  # tile 0's Gaussians
+        px = torch.arange(256) % 16
+        py = torch.arange(256) // 16
+        dx, dy = px[None] - rows[:, 0, None], py[None] - rows[:, 1, None]
+        power = -0.5 * (rows[:, 2, None] * dx * dx + rows[:, 4, None] * dy * dy) - rows[:, 3, None] * dx * dy
+        alpha = rows[:, 5, None] * torch.exp(power)
+        assert is_crowded(power, alpha), family
+        # The check itself, forward and backward, on 16 of the tiles for the
+        # new families (the plain backward takes seconds per 256 tiles).
+        assert check_alpha_threshold.check(1, "cpu", family, tiles_x=16 if family == "threshold" else 4) == dict(
+            pixels_beyond=0, tiles_n_proc_differ=0, max_abs_err=0.0, bwd_rows_beyond=0, bwd_max_rel_err=0.0
+        ), family
 
 
 # ---------------------------------------------------------------------------
