@@ -214,6 +214,27 @@ Phases, each reported on its own lines; any failure exits non-zero:
    crowded at each alpha cut (`scripts/check_alpha_threshold.py`: alpha =
    1/255, the 0.99 clamp, power = 0): pixels and d_table rows beyond 1e-5.
 
+15. assets: the port's own weight import and fixture generator, last
+   (it writes into `weights/`, refuses to start where a file it would write
+   is already there, and removes what it wrote, pass or fail). (a)
+   `scripts/make_fixture_chunk.py` regenerates the fixture under the
+   gitignored `build/`: keys, urls, timestamps, cameras and both indexes
+   equal to `tests/fixtures` bit for bit, frames within 2/255 in mean; the
+   byte-identical share and the largest frame difference. (b) seeded random
+   weights in the published layouts at full width (the `lpips` lin file,
+   torchvision's VGG16, the DINO ViT-B/8 and ResNet-50 hub checkpoints
+   carrying `[eval_protocol]`'s seeded trunks) through
+   `scripts/export_weights.py` into `weights/`: on the card the LPIPS npz,
+   the direct read and the full state_dict bit-equal, the DINO graft equal
+   to the seeded trunks bit for bit. (c) the protocol (`main +experiment=re10k
+   mode=test`) on the regenerated fixture with a checkpoint written with
+   the DINO npz on disk (bit-equal to `[eval_protocol]`'s) and LPIPS from
+   the npz: K1 exactly 6 times, 0 dropped pairs, finite scores; PSNR and
+   SSIM per view against `[eval_protocol]`'s within the bound the JPEG
+   difference of (a) allows; LPIPS from the direct read on the card against
+   the CPU within 1e-4 relative. Prints the seconds of (a), (b), (c) and
+   the protocol's ms per scene beside the card line.
+
 Every kernel's launch count is set to 0 just before each path is driven
 and read just after it. The run ends with the card line, a JSON record of
 the five kernels and {"ok": true, "device": {...}}.
@@ -221,9 +242,11 @@ the five kernels and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -769,6 +792,45 @@ EVAL_SSIM_ATOL = 1e-6
 EVAL_TOOLS_DIR = ROOT / "build" / "chip_smoke" / "eval_tools"
 
 
+@contextlib.contextmanager
+def watched_protocol():
+    """Watch the protocol's encodes and renders through the wrapper's
+    factories: yields {"encode": [batch, generator state, ...], "decode":
+    [colour, settings]}, one entry per call."""
+    from pixelsplat_tpu_torch.training.model_wrapper import ModelWrapper
+
+    seen = {"encode": [], "decode": []}
+    make_encode, make_decode = ModelWrapper.make_eval_encode, ModelWrapper.make_eval_decode
+
+    def watched_encode(self, pack_soa=False):
+        encode = make_encode(self, pack_soa=pack_soa)
+
+        def encode_fn(batch, deterministic, step, generator=None, u=None, view_order=None):
+            state = None if generator is None else generator.get_state()
+            g = encode(batch, deterministic, step, generator=generator, u=u, view_order=view_order)
+            seen["encode"].append(dict(batch=batch, generator_state=state, pack_soa=pack_soa,
+                                       deterministic=deterministic, gaussians=g.mean_x.shape[1]))
+            return g
+
+        return encode_fn
+
+    def watched_decode(self):
+        decode = make_decode(self)
+
+        def decode_fn(*args, **kwargs):
+            color, overflow = decode(*args, **kwargs)
+            seen["decode"].append(dict(color=color, settings=args[6] if len(args) > 6 else None))
+            return color, overflow
+
+        return decode_fn
+
+    ModelWrapper.make_eval_encode, ModelWrapper.make_eval_decode = watched_encode, watched_decode
+    try:
+        yield seen
+    finally:
+        ModelWrapper.make_eval_encode, ModelWrapper.make_eval_decode = make_encode, make_decode
+
+
 def eval_protocol_phase(torch, kernels) -> dict:
     """`pixelsplat_tpu_torch.main.main` in this process, as the CLI runs it:
     `re10k` at full width, the fixture, the configured data workers (forked
@@ -801,42 +863,12 @@ def eval_protocol_phase(torch, kernels) -> dict:
         h, w = cfg.dataset.image_shape
         checkpoint = write_checkpoint(tmp / "checkpoints", RE10K, SEED)  # the preset equals the experiment
 
-        # Watch the protocol's encodes and renders through the wrapper's
-        # factories: the batch, the generator's state and the images.
-        seen = {"encode": [], "decode": []}
-        make_encode, make_decode = ModelWrapper.make_eval_encode, ModelWrapper.make_eval_decode
-
-        def watched_encode(self, pack_soa=False):
-            encode = make_encode(self, pack_soa=pack_soa)
-
-            def encode_fn(batch, deterministic, step, generator=None, u=None, view_order=None):
-                state = None if generator is None else generator.get_state()
-                g = encode(batch, deterministic, step, generator=generator, u=u, view_order=view_order)
-                seen["encode"].append(dict(batch=batch, generator_state=state, pack_soa=pack_soa,
-                                           deterministic=deterministic, gaussians=g.mean_x.shape[1]))
-                return g
-
-            return encode_fn
-
-        def watched_decode(self):
-            decode = make_decode(self)
-
-            def decode_fn(*args, **kwargs):
-                color, overflow = decode(*args, **kwargs)
-                seen["decode"].append(dict(color=color, settings=args[6] if len(args) > 6 else None))
-                return color, overflow
-
-            return decode_fn
-
         held_gib = torch.cuda.memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()
         reset_launches(kernels)
-        ModelWrapper.make_eval_encode, ModelWrapper.make_eval_decode = watched_encode, watched_decode
-        t0 = time.perf_counter()
-        try:
+        with watched_protocol() as seen:
+            t0 = time.perf_counter()
             summary = cli.main(argv + [f"checkpointing.load={checkpoint}"])
-        finally:
-            ModelWrapper.make_eval_encode, ModelWrapper.make_eval_decode = make_encode, make_decode
         run_s = time.perf_counter() - t0
         launches = launch_counts(kernels)
 
@@ -2646,6 +2678,241 @@ def paper_phase(torch, kernels) -> dict:
     return result
 
 
+# The port's weight import and fixture generator, run last: `[assets]`
+# writes seeded random weights into `weights/` for its protocol run and
+# removes them when it ends, pass or fail; it refuses to start where
+# `weights/` already holds a file it would write (a user's real weights).
+ASSETS_DIR = ROOT / "build" / "chip_smoke" / "assets"
+ASSETS_WEIGHTS = ("lpips_vgg.npz", "dino_vitb8.npz", "dino_resnet50.npz")
+# The fixture regenerated against the checked-in one: frames within 2/255
+# in mean absolute value (the JPEG encoder's version may differ).
+FIXTURE_MEAN_LEVELS = 2.0
+# LPIPS on the card against the CPU, relative (TF32 off).
+ASSETS_LPIPS_RTOL = 1e-4
+
+
+def published_layouts(torch, reference: dict, directory: Path, seed: int) -> dict:
+    """Seeded random weights in the published files' layouts, at full width.
+
+    The DINO hub checkpoints carry the reference checkpoint's own trunks
+    (`reference`: the encoder's parameters): `dino_vitbase8_pretrain.pth`
+    its ViT-B/8, `dino_resnet50_pretrain.pth` torchvision's four-stage
+    ResNet-50 with its stages 1-3 (stage 4, the BatchNorm counters and the
+    `fc` head, which the encoder does not hold, seeded). The LPIPS files are
+    the `lpips` package's lin file (`weights/v0.1/vgg.pth`) and torchvision's
+    VGG16 state_dict, classifier included."""
+    from pixelsplat_tpu_torch.evaluation import lpips
+    from pixelsplat_tpu_torch.model.encoder.backbone.resnet import BackboneResnet, BackboneResnetCfg
+    from pixelsplat_tpu_torch.scripts.eval_scene import init_random_weights
+
+    generator = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=generator) * scale
+
+    vit = {k[len("backbone.dino."):]: v.cpu() for k, v in reference.items() if k.startswith("backbone.dino.")}
+    trunk = BackboneResnet(BackboneResnetCfg(model="dino_resnet50", num_layers=5)).model  # four stages
+    init_random_weights(trunk, generator)
+    resnet = {}
+    for k, v in trunk.state_dict().items():
+        resnet[k] = reference.get(f"backbone.resnet_backbone.model.{k}", v).detach().cpu().clone()
+        if k.endswith("running_var"):
+            resnet[k.replace("running_var", "num_batches_tracked")] = torch.tensor(seed + 1, dtype=torch.int64)
+    resnet["fc.weight"], resnet["fc.bias"] = randn(1000, 2048, scale=2048**-0.5), torch.zeros(1000)
+
+    vgg, in_ch = {}, 3
+    for tv, (ch, _) in zip(lpips.TV_INDICES, lpips.VGG16_PLAN):
+        vgg[f"features.{tv}.weight"] = randn(ch, in_ch, 3, 3, scale=(9 * in_ch) ** -0.5)
+        vgg[f"features.{tv}.bias"] = randn(ch, scale=0.1)
+        in_ch = ch
+    for i, (n_in, n_out) in zip((0, 3, 6), ((25088, 4096), (4096, 4096), (4096, 1000))):
+        vgg[f"classifier.{i}.weight"] = randn(n_out, n_in, scale=n_in**-0.5)
+        vgg[f"classifier.{i}.bias"] = torch.zeros(n_out)
+    lin = {f"lin{i}.model.1.weight": randn(1, lpips.VGG16_PLAN[t][0], 1, 1).abs() * 0.1
+           for i, t in enumerate(lpips.TAPS)}
+    files = {"vit": directory / "dino_vitbase8_pretrain.pth", "resnet": directory / "dino_resnet50_pretrain.pth",
+             "vgg": directory / "vgg16-397923af.pth", "lin": directory / "vgg.pth"}
+    directory.mkdir(parents=True, exist_ok=True)
+    for key, sd in (("vit", vit), ("resnet", resnet), ("vgg", vgg), ("lin", lin)):
+        torch.save(sd, files[key])
+    files["vit_tensors"], files["resnet_tensors"] = len(vit), len(resnet)
+    return files
+
+
+def assets_phase(torch, kernels, protocol: dict) -> dict:
+    """The fixture regenerated by `scripts/make_fixture_chunk.py`, the
+    published weight layouts through `scripts/export_weights.py`, and the
+    evaluation protocol on that fixture with those weights."""
+    from pixelsplat_tpu_torch.interop.pretrained import WEIGHTS_DIR
+
+    present = [name for name in ASSETS_WEIGHTS if (WEIGHTS_DIR / name).exists()]
+    if present:
+        fail(f"assets: weights/ already holds {present}; this phase writes random weights there and stops "
+             "rather than overwrite them")
+    created = not WEIGHTS_DIR.exists()
+    try:
+        return assets_run(torch, kernels, protocol)
+    finally:
+        for name in ASSETS_WEIGHTS:
+            (WEIGHTS_DIR / name).unlink(missing_ok=True)
+        if created and WEIGHTS_DIR.exists() and not any(WEIGHTS_DIR.iterdir()):
+            WEIGHTS_DIR.rmdir()
+        for name in ("published", "reference", "checkpoints"):  # ~2.5 GB of weights
+            shutil.rmtree(ASSETS_DIR / name, ignore_errors=True)
+
+
+def assets_run(torch, kernels, protocol: dict) -> dict:
+    from pixelsplat_tpu_torch import main as cli
+    from pixelsplat_tpu_torch.config import EXPERIMENTS
+    from pixelsplat_tpu_torch.evaluation import lpips as lpips_consts
+    from pixelsplat_tpu_torch.evaluation.lpips import load_lpips, load_lpips_published
+    from pixelsplat_tpu_torch.evaluation.metrics import compute_psnr, compute_ssim
+    from pixelsplat_tpu_torch.interop.pretrained import WEIGHTS_DIR, init_backbone_from_pretrained
+    from pixelsplat_tpu_torch.scripts import export_weights, make_fixture_chunk
+    from pixelsplat_tpu_torch.scripts.eval_scene import card_line
+    from pixelsplat_tpu_torch.scripts.write_checkpoint import write_checkpoint
+    from pixelsplat_tpu_torch.training.checkpoint import load_checkpoint
+    from pixelsplat_tpu_torch.training.model_wrapper import ModelWrapper
+    from pixelsplat_tpu_torch.training.trainer import RESULTS_NAME
+
+    shutil.rmtree(ASSETS_DIR, ignore_errors=True)
+
+    # (a) The fixture, regenerated and held against the checked-in one.
+    t0 = time.perf_counter()
+    fixture = ASSETS_DIR / "fixtures" / "re10k"
+    make_fixture_chunk.main(["--out", str(fixture)])
+    stats = make_fixture_chunk.compare_fixtures(fixture, FIXTURE / "re10k")
+    index_path = fixture.parent / "evaluation_index_fixture.json"
+    same_eval_index = json.loads(index_path.read_text()) == json.loads(
+        (FIXTURE / "evaluation_index_fixture.json").read_text())
+    fixture_s = time.perf_counter() - t0
+    phase("assets", f"(a) fixture regenerated into {fixture.relative_to(ROOT)}: {stats['identical_share']:.3f} of "
+          f"{stats['frames']} JPEGs byte-identical to tests/fixtures/re10k, largest frame difference "
+          f"{stats['max_levels']} levels (largest mean {stats['max_mean_levels']:.4f}); keys, urls, timestamps and "
+          f"cameras {'equal' if stats['same_metadata'] else 'DIFFER'}, index.json "
+          f"{'equal' if stats['same_index'] else 'DIFFERS'}, evaluation index {'equal' if same_eval_index else 'DIFFERS'}")
+    if not (stats["same_metadata"] and stats["same_index"] and same_eval_index
+            and stats["max_mean_levels"] <= FIXTURE_MEAN_LEVELS):
+        fail(f"assets: the regenerated fixture differs from the checked-in one: {stats}")
+
+    # (b) The weights: published layouts through the export script.
+    t0 = time.perf_counter()
+    reference_ckpt = write_checkpoint(ASSETS_DIR / "reference", RE10K, SEED)  # [eval_protocol]'s weights
+    reference = load_checkpoint(reference_ckpt)["params"]
+    files = published_layouts(torch, reference, ASSETS_DIR / "published", SEED)
+    written = export_weights.main([
+        "--lpips-lin", str(files["lin"]), "--vgg16", str(files["vgg"]),
+        "--dino-vit", f"dino_vitb8={files['vit']}", "--dino-resnet50", str(files["resnet"]),
+    ])
+    if sorted(p.name for p in written) != sorted(ASSETS_WEIGHTS) or any(p.parent != WEIGHTS_DIR for p in written):
+        fail(f"assets: export_weights wrote {written}")
+    npz = load_lpips().cuda().state_dict()
+    direct = load_lpips_published(files["lin"], files["vgg"]).state_dict()
+    # One full `lpips.LPIPS(net="vgg").state_dict()` of the same weights.
+    full = {"scaling_layer.shift": torch.tensor(lpips_consts.SHIFT)[None, :, None, None],
+            "scaling_layer.scale": torch.tensor(lpips_consts.SCALE)[None, :, None, None],
+            **direct, **torch.load(files["lin"], weights_only=True)}
+    from_full = load_lpips_published(state_dict=full).cuda().state_dict()
+    direct = {k: v.cuda() for k, v in direct.items()}
+    lpips_differ = [k for k, v in direct.items() if not (torch.equal(v, npz[k]) and torch.equal(v, from_full[k]))]
+    grafted = ModelWrapper(*EXPERIMENTS[RE10K][0]())
+    n_grafted = init_backbone_from_pretrained(grafted.encoder)
+    trunk_state = grafted.encoder.state_dict()
+    trunk_keys = [k for k in trunk_state if k.startswith(("backbone.dino.", "backbone.resnet_backbone.model."))]
+    graft_differ = [k for k in trunk_keys if not torch.equal(trunk_state[k].cpu(), reference[k].cpu())]
+    del grafted, trunk_state
+    weights_s = time.perf_counter() - t0
+    sizes = {p.name: round(p.stat().st_size / 2**20, 1) for p in written}
+    phase("assets", f"(b) export_weights from the published layouts wrote {sizes} MiB; LPIPS on the card: npz route "
+          f"against the direct read (lin file + VGG16) and the full state_dict, {len(direct)} tensors, "
+          f"{len(lpips_differ)} differ; DINO: {n_grafted} trunk tensors grafted ({files['vit_tensors']} ViT-B/8 "
+          f"tensors, {files['resnet_tensors']} in the hub ResNet-50 file), {len(graft_differ)} of {len(trunk_keys)} "
+          f"differ from the seeded checkpoint's")
+    if lpips_differ or graft_differ or n_grafted != len(trunk_keys):
+        fail(f"assets: LPIPS routes differ at {lpips_differ[:3]}, grafted trunk differs at {graft_differ[:3]}, "
+             f"{n_grafted} grafted of {len(trunk_keys)}")
+
+    # (c) The protocol on the regenerated fixture, the backbone from the
+    # DINO npz (grafted by `init_state` on top of the seeded weights) and
+    # LPIPS from the LPIPS npz.
+    t0 = time.perf_counter()
+    checkpoint = write_checkpoint(ASSETS_DIR / "checkpoints", RE10K, SEED)
+    params = load_checkpoint(checkpoint)["params"]
+    ckpt_differ = [k for k, v in params.items() if not torch.equal(v, reference[k])]
+    if ckpt_differ or params.keys() != reference.keys():
+        fail(f"assets: the checkpoint with the grafted backbone differs from [eval_protocol]'s at {ckpt_differ[:3]}")
+    argv = [
+        "+experiment=re10k", "mode=test", f"dataset.roots=[{fixture}]", "dataset/view_sampler=evaluation",
+        f"dataset.view_sampler.index_path={index_path}", f"test.output_path={ASSETS_DIR / 'test'}",
+        f"output_dir={ASSETS_DIR / 'outputs'}", f"checkpointing.load={checkpoint}",
+    ]
+    reset_launches(kernels)
+    with watched_protocol() as seen:
+        t1 = time.perf_counter()
+        summary = cli.main(argv)
+        run_s = time.perf_counter() - t1
+    launches = launch_counts(kernels)
+    phase("assets", f"(c) main +experiment=re10k mode=test on {fixture.relative_to(ROOT)} in {run_s:.1f} s: {summary}")
+    n_scenes = len(protocol["renders"])
+    finite = all(summary[k] is not None and math.isfinite(summary[k]) for k in ("psnr", "ssim", "lpips"))
+    if summary["num_scenes"] != n_scenes or summary["overflow_pairs"] != 0 or not finite:
+        fail(f"assets: {summary['num_scenes']} scenes, {summary['overflow_pairs']} dropped pairs, scores {summary}")
+    if launches["composite_fwd"] != 3 * n_scenes or any(n for k, n in launches.items() if k != "composite_fwd"):
+        fail(f"assets: kernel launches {launches}, expected composite_fwd once per target view")
+    if [e["gaussians"] for e in seen["encode"]] != [2 * 256 * 256 * 3] * n_scenes:
+        fail(f"assets: Gaussians per scene {[e['gaussians'] for e in seen['encode']]}")
+
+    # Against [eval_protocol]'s renders on the checked-in fixture: the same
+    # weights, seed and program. Byte-identical JPEGs give the same inputs,
+    # so the scores agree to the card's run-to-run noise; otherwise to a
+    # bound from the largest frame difference d (in [0, 1]) that (a)
+    # measured: a ground truth and a render each moved by at most d move a
+    # view's RMSE by at most 2 d, its PSNR by at most 20 log10(1 + 2 d /
+    # RMSE), and (an assumed sensitivity of one) its SSIM by 2 d.
+    d = 0.0 if stats["identical_share"] == 1.0 else stats["max_levels"] / 255
+    worst = {"psnr": 0.0, "ssim": 0.0, "psnr_bound": 0.0}
+    lpips_module = load_lpips_published(files["lin"], files["vgg"]).eval().cuda()
+    pairs = []
+    for e, dec, ref in zip(seen["encode"], seen["decode"], protocol["renders"]):
+        gt, color = e["batch"]["target"]["image"][0], dec["color"][0]
+        psnr, ssim = compute_psnr(gt, color).cpu(), compute_ssim(gt, color).cpu()
+        psnr_ref, ssim_ref = compute_psnr(ref["gt"], ref["color"]), compute_ssim(ref["gt"], ref["color"])
+        rmse = ((ref["gt"] - ref["color"].clamp(0, 1)) ** 2).mean(dim=(1, 2, 3)).sqrt()
+        psnr_bound = EVAL_PSNR_ATOL_DB + 20 * torch.log10(1 + 2 * d / rmse)
+        psnr_off, ssim_off = (psnr - psnr_ref).abs(), (ssim - ssim_ref).abs()
+        if bool((psnr_off > psnr_bound).any()) or bool((ssim_off > EVAL_SSIM_ATOL + 2 * d).any()):
+            fail(f"assets: PSNR per view {psnr.tolist()} against [eval_protocol]'s {psnr_ref.tolist()} "
+                 f"(bound {psnr_bound.tolist()}), SSIM {ssim.tolist()} against {ssim_ref.tolist()}")
+        worst = {"psnr": max(worst["psnr"], float(psnr_off.max())), "ssim": max(worst["ssim"], float(ssim_off.max())),
+                 "psnr_bound": max(worst["psnr_bound"], float(psnr_bound.max()))}
+        pairs.append((gt, color))
+    with torch.no_grad():
+        lpips_card = [lpips_module(gt, color).cpu() for gt, color in pairs]
+        lpips_module.cpu()
+        lpips_cpu = [lpips_module(gt.cpu(), color.cpu()) for gt, color in pairs]
+    card_values, cpu_values = torch.cat(lpips_card), torch.cat(lpips_cpu)
+    lpips_rel = float(((card_values - cpu_values).abs() / cpu_values.abs()).max())
+    scene_means = [float(v.mean()) for v in lpips_card]
+    summary_rel = abs(sum(scene_means) / len(scene_means) - summary["lpips"]) / abs(summary["lpips"])
+    phase("assets", f"(c) against [eval_protocol] on the checked-in fixture: PSNR per view off by at most "
+          f"{worst['psnr']:.3g} dB (bound {worst['psnr_bound']:.3g}), SSIM by {worst['ssim']:.3g} (bound "
+          f"{EVAL_SSIM_ATOL + 2 * d:.3g}); LPIPS (direct read) per view card {card_values.tolist()} against CPU "
+          f"{cpu_values.tolist()}: largest relative difference {lpips_rel:.3g} (limit {ASSETS_LPIPS_RTOL}; "
+          f"{int((card_values != cpu_values).sum())} of {len(card_values)} values not bit-equal), the summary's LPIPS (npz) "
+          f"against the card's direct read {summary_rel:.3g}; composite_fwd launched {launches['composite_fwd']} times")
+    if not (bool(torch.isfinite(card_values).all()) and lpips_rel <= ASSETS_LPIPS_RTOL
+            and summary_rel <= ASSETS_LPIPS_RTOL):
+        fail(f"assets: LPIPS card {card_values.tolist()}, CPU {cpu_values.tolist()}, summary {summary['lpips']}")
+    protocol_s = time.perf_counter() - t0
+
+    bench = json.loads((ASSETS_DIR / "test" / RESULTS_NAME / "benchmark.json").read_text())
+    per_scene = [1e3 * (enc + sum(bench["decoder"][3 * i: 3 * i + 3])) for i, enc in enumerate(bench["encoder"])]
+    phase("timing", f"assets | {card_line()} | (a) fixture {fixture_s:.1f} s | (b) weights {weights_s:.1f} s | "
+          f"(c) protocol {protocol_s:.1f} s (main {run_s:.1f} s) | protocol ms per scene (encoder + 3 views) "
+          f"{[round(t, 3) for t in per_scene]}")
+    return {"launches": launches, "lpips_rel": lpips_rel, "identical_share": stats["identical_share"]}
+
+
 def gc_cuda(torch) -> None:
     import gc
 
@@ -2740,6 +3007,10 @@ def main() -> None:
     # 14. the reference-checkpoint route, the parity runbook, the paper's figures and tables
     paper = paper_phase(torch, kernels)
 
+    # 15. the weight import, the fixture generator and the protocol on both (last: it writes into weights/)
+    gc_cuda(torch)
+    assets = assets_phase(torch, kernels, protocol)
+
     by_path = {"tools": {name: smoke_launches[name] + tools["launches"][name] for name in kernels}}
     by_path["eval_protocol"] = protocol["launches"]
     by_path.update(training["launches"])
@@ -2749,6 +3020,7 @@ def main() -> None:
     by_path.update(distributed["launches"])
     by_path.update(visualization["launches"])
     by_path.update(paper["launches"])
+    by_path["assets"] = assets["launches"]
     for model, r in results.items():
         for path, counts in r["launches"].items():
             by_path[f"{model} {path}"] = counts

@@ -6,10 +6,13 @@ VGG16 features after the five ReLU stages, per-channel unit normalization,
 squared differences, the learned 1x1 "lin" weights, spatial mean, sum over
 stages.
 
-Pretrained weights (VGG16 + lin heads) load from the `.npz` that the JAX
-package's `tools/export_lpips_weights.py` writes (`weights/lpips_vgg.npz`
-at the root of the checkout; kernels stored height, width, in, out).
-Without the file, `get_lpips(allow_random=True)` gives architecture-correct
+Pretrained weights (VGG16 + lin heads) load from `weights/lpips_vgg.npz`
+at the root of the checkout (kernels stored height, width, in, out; the
+layout both packages read), which `scripts/export_weights.py` writes from
+the published files. `load_lpips_published` reads those files directly:
+the `lpips` package's lin file (`weights/v0.1/vgg.pth`) with torchvision's
+VGG16 state_dict, or one full `lpips.LPIPS(net="vgg").state_dict()`.
+Without the npz, `get_lpips(allow_random=True)` gives architecture-correct
 random weights: fine for exercising code paths, not for metric parity.
 """
 
@@ -17,7 +20,7 @@ from __future__ import annotations
 
 import math
 from pathlib import Path
-from typing import Optional
+from typing import Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -115,6 +118,85 @@ def load_lpips(path: Optional[str] = None) -> Optional[LPIPS]:
     return model
 
 
+def _load_pth(path) -> dict:
+    return torch.load(Path(path), map_location="cpu", weights_only=True)
+
+
+def _renamed_lin_and_vgg(lin: Mapping, vgg: Mapping) -> dict[str, torch.Tensor]:
+    """The port's state_dict from the lin file (`lin{i}.model.1.weight`)
+    and torchvision's VGG16 (`features.N.*`; its `classifier.*` unused)."""
+    want_lin = {f"lin{i}.model.1.weight" for i in range(len(TAPS))}
+    if set(lin) != want_lin:
+        raise KeyError(f"LPIPS lin file: keys {sorted(lin)}, expected {sorted(want_lin)}")
+    features = {f"features.{i}.{p}" for i in TV_INDICES for p in ("weight", "bias")}
+    extra = [k for k in vgg if k not in features and not k.startswith("classifier.")]
+    if not features <= set(vgg) or extra:
+        raise KeyError(f"VGG16 state_dict: missing {sorted(features - set(vgg))}, unexpected {extra}")
+    sd = {}
+    for i, tv in enumerate(TV_INDICES):
+        for p in ("weight", "bias"):
+            sd[f"net.slice{SLICE_OF[i]}.{tv}.{p}"] = vgg[f"features.{tv}.{p}"]
+    for i in range(len(TAPS)):
+        sd[f"lins.{i}.model.1.weight"] = lin[f"lin{i}.model.1.weight"]
+    return sd
+
+
+def _renamed_full(full: Mapping) -> dict[str, torch.Tensor]:
+    """The port's state_dict from `lpips.LPIPS(net="vgg").state_dict()`:
+    `net.*` and `lins.*` as they are; `lin{i}.*` (the same modules under
+    their attribute names) must equal `lins.{i}.*`; the scaling layer's
+    buffers must hold SHIFT and SCALE."""
+    sd = {k: v for k, v in full.items() if k.startswith(("net.", "lins."))}
+    for i in range(len(TAPS)):
+        key = f"lin{i}.model.1.weight"
+        if key in full and not torch.equal(full[key], full[f"lins.{i}.model.1.weight"]):
+            raise ValueError(f"LPIPS state_dict: {key} differs from lins.{i}.model.1.weight")
+    for name, value in (("shift", SHIFT), ("scale", SCALE)):
+        key = f"scaling_layer.{name}"
+        if key in full and not torch.equal(full[key].reshape(-1), torch.tensor(value)):
+            raise ValueError(f"LPIPS state_dict: {key} is {full[key].reshape(-1).tolist()}, not {value}")
+    known = {f"lin{i}.model.1.weight" for i in range(len(TAPS))} | {"scaling_layer.shift", "scaling_layer.scale"}
+    extra = sorted(k for k in full if k not in sd and k not in known)
+    if extra:
+        raise KeyError(f"LPIPS state_dict: unexpected keys {extra}")
+    return sd
+
+
+def load_lpips_published(
+    lin_path: Optional[Union[str, Path]] = None,
+    vgg_path: Optional[Union[str, Path]] = None,
+    state_dict: Optional[Union[Mapping, str, Path]] = None,
+) -> LPIPS:
+    """The LPIPS module from the published files: the `lpips` package's lin
+    file (`weights/v0.1/vgg.pth`) with torchvision's VGG16 state_dict
+    (`vgg16-397923af.pth`), or one full `lpips.LPIPS(net="vgg")` state_dict
+    (the dict, or a file that `torch.save` wrote). Loaded with `strict=True`."""
+    if (state_dict is None) == (lin_path is None and vgg_path is None) or (lin_path is None) != (vgg_path is None):
+        raise ValueError("give lin_path and vgg_path, or state_dict")
+    if state_dict is not None:
+        sd = _renamed_full(state_dict if isinstance(state_dict, Mapping) else _load_pth(state_dict))
+    else:
+        sd = _renamed_lin_and_vgg(_load_pth(lin_path), _load_pth(vgg_path))
+    model = LPIPS()
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def lpips_npz_arrays(model: LPIPS) -> dict[str, np.ndarray]:
+    """The arrays of `weights/lpips_vgg.npz` (what `load_lpips` reads):
+    `vgg_conv{i}_kernel` / `_bias` and `lin{i}_kernel`, kernels height,
+    width, in, out."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    out = {}
+    for i in range(len(VGG16_PLAN)):
+        key = f"net.slice{SLICE_OF[i]}.{TV_INDICES[i]}"
+        out[f"vgg_conv{i}_kernel"] = sd[f"{key}.weight"].transpose(2, 3, 1, 0)
+        out[f"vgg_conv{i}_bias"] = sd[f"{key}.bias"]
+    for i in range(len(TAPS)):
+        out[f"lin{i}_kernel"] = sd[f"lins.{i}.model.1.weight"].transpose(2, 3, 1, 0)
+    return out
+
+
 def random_lpips(seed: int = 0) -> LPIPS:
     """Architecture-correct random weights (tests and smoke runs): fan-in
     scaled normal kernels, zero biases."""
@@ -135,8 +217,9 @@ def get_lpips(allow_random: bool = True) -> tuple[LPIPS, bool]:
     if model is None:
         if not allow_random:
             raise FileNotFoundError(
-                f"LPIPS weights not found at {DEFAULT_WEIGHTS_PATH}; export them with the "
-                "JAX package's tools/export_lpips_weights.py"
+                f"LPIPS weights not found at {DEFAULT_WEIGHTS_PATH}; write them from the published files "
+                "with python -m pixelsplat_tpu_torch.scripts.export_weights --lpips-lin vgg.pth "
+                "--vgg16 vgg16-397923af.pth"
             )
         return random_lpips().eval(), False
     return model.eval(), True

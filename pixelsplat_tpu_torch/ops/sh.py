@@ -71,6 +71,19 @@ def sh_basis_components(x, y, z, degree: int) -> list:
     return out
 
 
+def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
+    """(..., 3) unit directions -> (..., (degree + 1)^2) basis values."""
+    return torch.stack(sh_basis_components(dirs[..., 0], dirs[..., 1], dirs[..., 2], degree), dim=-1)
+
+
+def eval_sh(sh_coefficients: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """(..., 3, d_sh) coefficients at (..., 3) directions -> (..., 3) colours,
+    with the 3DGS rasterizer's +0.5 offset, clamped at zero."""
+    degree = int(np.sqrt(sh_coefficients.shape[-1])) - 1
+    color = torch.einsum("...cd,...d->...c", sh_coefficients, sh_basis(dirs, degree))
+    return torch.clamp(color + 0.5, min=0.0)
+
+
 @lru_cache(maxsize=None)
 def _fixed_directions_and_pinv(degree: int) -> tuple[np.ndarray, np.ndarray]:
     """Fibonacci-sphere directions D (N = 2(2l+1)) and pinv(B_l(D)), float64."""
@@ -146,3 +159,10 @@ def apply_sh_rotation(sh_coefficients: torch.Tensor, m: torch.Tensor) -> torch.T
     sh = sh_coefficients.reshape(sb + (n,)).expand(lead + tail + (n,))
     out = sh.reshape(lead + (rows, n)) @ m.transpose(-1, -2)
     return out.reshape(lead + tail + (n,))
+
+
+def rotate_sh(sh_coefficients: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
+    """Rotate (..., n) coefficients by (..., 3, 3) rotations: the rotated
+    function along R d equals the original along d."""
+    degree = int(np.sqrt(sh_coefficients.shape[-1])) - 1
+    return apply_sh_rotation(sh_coefficients, full_sh_rotation_matrix(rotations, degree))

@@ -4,9 +4,9 @@ Port of `pixelsplat_tpu/utils/wandb_tools.py`: `select_logger` returns a
 `WandbLogger` (scalars, images, videos and checkpoint artifacts through wandb,
 everything also written by the wrapped `LocalLogger`) when wandb imports
 and `wandb.mode` is not `disabled`, else the `LocalLogger`.
-`update_checkpoint_path` passes plain paths through and refuses the JAX
-package's `wandb://run_id[:version]` checkpoint URIs, whose artifacts are
-orbax directories the port does not read.
+`update_checkpoint_path` passes plain paths through and resolves
+`wandb://run_id[:version]` to the checkpoint file of the run's newest (or
+the named) `model` artifact, downloaded under `checkpoints/`.
 """
 
 from __future__ import annotations
@@ -25,15 +25,54 @@ except ImportError:
     WANDB_AVAILABLE = False
 
 
+def version_to_int(artifact) -> int:
+    """A wandb version string such as 'v12' as 12."""
+    return int(artifact.version[1:])
+
+
+def download_checkpoint(run_id: str, download_dir: Path, version: Optional[str]) -> Path:
+    """Download the run's `model` artifact of `version` (None: the newest)
+    into `download_dir/<run>/<version>` and return the one file it holds:
+    `step_<n>` for the artifacts `WandbLogger.log_model` uploads. The JAX
+    package's artifacts are orbax directories of many files and raise."""
+    if not WANDB_AVAILABLE:
+        raise RuntimeError("wandb:// checkpoint URIs require the wandb package")
+    chosen = None
+    for artifact in wandb.Api().run(run_id).logged_artifacts():
+        if artifact.type != "model":
+            continue
+        if version is None:
+            if chosen is None or version_to_int(artifact) > version_to_int(chosen):
+                chosen = artifact
+        elif artifact.version == version:
+            chosen = artifact
+    if chosen is None:
+        raise ValueError(f"No matching checkpoint artifact for {run_id}:{version}")
+    root = Path(download_dir) / run_id.replace("/", "_") / chosen.version
+    root.mkdir(parents=True, exist_ok=True)
+    files = sorted(p for p in Path(chosen.download(root=str(root))).rglob("*") if p.is_file())
+    if len(files) != 1:
+        raise ValueError(
+            f"artifact {run_id}:{chosen.version} holds {len(files)} files, not one checkpoint file of this package"
+        )
+    return files[0]
+
+
 def update_checkpoint_path(path: Optional[Union[str, Path]], wandb_cfg=None) -> Optional[Path]:
-    """Plain paths pass through; `wandb://` URIs are refused (download the
-    checkpoint and pass its path)."""
+    """Plain paths pass through; `wandb://run_id[:version]` resolves, in the
+    entity and project of `wandb_cfg`, to the checkpoint file of that run's
+    `model` artifact (`download_checkpoint`, under `checkpoints/`)."""
     if path is None:
         return None
     path = str(path)
-    if path.startswith("wandb://"):
-        raise ValueError(f"{path}: wandb:// checkpoint URIs are not resolved; download the checkpoint and pass its path")
-    return Path(path)
+    if not path.startswith("wandb://"):
+        return Path(path)
+    run_id, *rest = path[len("wandb://") :].split(":")
+    version = rest[0] if rest else None
+    project = getattr(wandb_cfg, "project", "pixelsplat_tpu")
+    entity = getattr(wandb_cfg, "entity", "")
+    full_run = f"{entity}/{project}/{run_id}" if entity else f"{project}/{run_id}"
+    return download_checkpoint(full_run, Path("checkpoints"), version)
 
 
 class WandbLogger:

@@ -302,7 +302,7 @@ def test_main_refuses_what_it_cannot_run(port_checkpoint, tmp_path, monkeypatch)
     (tmp_path / "orbax").mkdir()
     with pytest.raises(ValueError, match="interop/from_jax.py"):
         pt_main.main(PROTOCOL + [f"checkpointing.load={tmp_path / 'orbax'}"], device="cpu")
-    with pytest.raises(ValueError, match="wandb"):
+    with pytest.raises(RuntimeError, match="require the wandb package"):  # resolved only where wandb imports
         pt_main.main(PROTOCOL + ["checkpointing.load=wandb://run:v1"], device="cpu")
     # `train.extended_visualization` runs (test_torch_extended_validation.py
     # holds its figures and videos against the JAX package): with a

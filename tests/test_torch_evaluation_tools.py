@@ -367,7 +367,7 @@ def test_select_logger_falls_back_without_wandb(tmp_path):
     logger = wandb_tools.select_logger(WandbSettings(mode="online"), tmp_path)
     assert type(logger) is LocalLogger and logger.path == tmp_path / "local"
     logger.log_model(tmp_path, step=1)  # nothing to do locally
-    with pytest.raises(ValueError, match="wandb"):
+    with pytest.raises(RuntimeError, match="require the wandb package"):
         wandb_tools.update_checkpoint_path("wandb://run:v1")
     assert wandb_tools.update_checkpoint_path("a/b") == Path("a/b")
 

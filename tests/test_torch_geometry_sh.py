@@ -144,3 +144,33 @@ def test_full_rotation_and_apply_sh_rotation():
     want = jx_sh.apply_sh_rotation(jnp.asarray(sh), m_j[..., None, :, :])
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3, 4])
+def test_sh_basis_eval_sh_and_rotate_sh(degree):
+    """The public `sh_basis`, `eval_sh` and `rotate_sh` against the JAX
+    package's: directions, (..., 3, d_sh) coefficients and rotations made
+    by numpy from a seed."""
+    rng = np.random.default_rng(30 + degree)
+    n = (degree + 1) ** 2
+    d = rng.normal(size=(4, 7, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    basis = pt_sh.sh_basis(t(d), degree)
+    assert basis.shape == (4, 7, n)
+    np.testing.assert_allclose(basis.numpy(), np.asarray(jx_sh.sh_basis(jnp.asarray(d), degree)), rtol=1e-5, atol=1e-5)
+
+    sh = (0.5 * rng.normal(size=(4, 7, 3, n))).astype(np.float32)
+    color = pt_sh.eval_sh(t(sh), t(d))
+    assert color.shape == (4, 7, 3) and bool((color >= 0).all())
+    np.testing.assert_allclose(color.numpy(), np.asarray(jx_sh.eval_sh(jnp.asarray(sh), jnp.asarray(d))), rtol=1e-5, atol=1e-5)
+
+    rots = random_rotations(rng, 4)[:, None]  # one rotation per row, shared along the 7 directions
+    got = pt_sh.rotate_sh(t(sh), t(rots)[:, :, None])
+    want = jx_sh.rotate_sh(jnp.asarray(sh), jnp.asarray(rots)[:, :, None])
+    assert got.shape == want.shape == (4, 7, 3, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    # The rotated function along R d is the original along d.
+    rd = np.einsum("bij,bkj->bki", rots[:, 0], d)
+    np.testing.assert_allclose(
+        pt_sh.eval_sh(got, t(rd)).numpy(), color.numpy(), atol=1e-4
+    )

@@ -75,7 +75,8 @@ def test_import_without_cuda_or_nvcc(tmp_path):
         "          'interop.torch_import', 'scripts.import_checkpoint', 'scripts.run_parity_eval',\n"
         "          'scripts.dump_launch_configs', 'paper', 'paper.common', 'paper.table',\n"
         "          'paper.generate_point_cloud_figure', 'paper.generate_sampling_figure',\n"
-        "          'paper.generate_attention_figure', 'paper.generate_epipolar_sampling_figure'):\n"
+        "          'paper.generate_attention_figure', 'paper.generate_epipolar_sampling_figure',\n"
+        "          'scripts.export_weights', 'scripts.make_fixture_chunk', 'ops.sh'):\n"
         "    assert 'pixelsplat_tpu_torch.' + n in names, n\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()  # importing parallel/ creates no process group\n"
@@ -385,6 +386,29 @@ def test_tooling_slice_sources_exist_and_are_checked(relative):
     assert path in port_sources()  # so the import-isolation test reads it
     assert not imported_top_levels(path) & FORBIDDEN
     assert not module_level_imports(path) & {"matplotlib", "scipy"}
+
+
+# Slice 10: the weight import, the fixture generator, wandb:// checkpoints
+# and the public spherical-harmonics functions.
+ASSETS_SLICE_SOURCES = [
+    "evaluation/lpips.py",
+    "interop/pretrained.py",
+    "scripts/export_weights.py",
+    "scripts/make_fixture_chunk.py",
+    "utils/wandb_tools.py",
+    "ops/sh.py",
+]
+
+
+@pytest.mark.parametrize("relative", ASSETS_SLICE_SOURCES)
+def test_assets_slice_sources_exist_and_are_checked(relative):
+    path = PORT / relative
+    assert path.exists()
+    assert path in port_sources()  # so the import-isolation test reads it
+    assert not imported_top_levels(path) & FORBIDDEN
+    # scipy, PIL and lpips are imported where they are used (wandb, optional,
+    # is tried at import).
+    assert not module_level_imports(path) & {"scipy", "PIL", "lpips", "matplotlib"}
 
 
 def test_every_jax_module_has_a_counterpart():
