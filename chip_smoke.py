@@ -133,7 +133,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
    `tests/test_model.py` bounds), both rendered finite with no dropped
    pairs, every parameter float32 and each refinement convolution's output
    in its policy's dtype; encode ms of each in alternating rounds, and the
-   two 7x7 refinement convolutions' ms (`profile_scene.py`'s split).
+   device ms of the tracer's spans `encoder.epipolar` and `encoder.refine`
+   (the upscaler and the two 7x7 refinement convolutions).
 10. native: `main.main` as `python -m pixelsplat_tpu_torch.main
    +experiment=re10k_3_view mode=test` runs it (the evaluation sampler
    inserts the midpoint as the third context view; 589,824 Gaussians per
@@ -339,13 +340,17 @@ def phase(name: str, message: str) -> None:
 
 
 def launch_counts(kernels) -> dict:
-    """Each kernel wrapper's launches since its count was last set to 0."""
-    return {name: fn.launches for name, fn in kernels.items()}
+    """Each kernel's launches since the tracer was last reset, by the
+    kernel's name (`kernels` maps it to its launch counter)."""
+    from pixelsplat_tpu_torch.utils import tracing
+
+    return {name: tracing.counter(c) for name, c in kernels.items()}
 
 
 def reset_launches(kernels) -> None:
-    for fn in kernels.values():
-        fn.launches = 0
+    from pixelsplat_tpu_torch.utils import tracing
+
+    tracing.reset()
 
 
 def colour_channels(table) -> int:
@@ -1545,7 +1550,7 @@ def bf16_phase(torch, kernels, seed) -> dict:
     rounds)."""
     from pixelsplat_tpu_torch.config import re10k
     from pixelsplat_tpu_torch.scripts.eval_scene import TARGET_VIEWS, card_line, cuda_ms, make_eval_scene
-    from pixelsplat_tpu_torch.scripts.profile_scene import epipolar_transformer_stages
+    from pixelsplat_tpu_torch.utils import tracing
 
     card = card_line()
     reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
@@ -1608,21 +1613,29 @@ def bf16_phase(torch, kernels, seed) -> dict:
     for _ in range(2):  # alternating rounds
         for name, sc in scenes.items():
             encode_ms[name].append(cuda_ms(lambda: sc.encode(sc.batch, False, 0, u=u), iters=5))
-    stages = {name: epipolar_transformer_stages(sc) for name, sc in scenes.items()}
+    # The epipolar transformer's two spans over five traced encodes.
+    stages = {}
+    for name, sc in scenes.items():
+        tracing.reset()
+        tracing.enable(True)
+        try:
+            for _ in range(5):
+                sc.encode(sc.batch, False, 0, u=u)
+        finally:
+            tracing.enable(False)
+        spans = tracing.read()["spans"]
+        stages[name] = {stage: spans[f"encoder.{stage}"]["device_ms"] / 5 for stage in ("epipolar", "refine")}
     numbers = {
         name: dict(encode_ms=sum(encode_ms[name]) / len(encode_ms[name]),
-                   refinement_ms=stages[name]["refinement (two 7x7 convs)"],
-                   refinement_channels_last_ms=stages[name]["refinement, channels-last input"],
-                   epipolar_transformer_ms=stages[name]["all"])
+                   refinement_ms=stages[name]["refine"],
+                   epipolar_transformer_ms=stages[name]["epipolar"] + stages[name]["refine"])
         for name in policies
     }
     phase("timing", f"bf16 | {card} | encode ms f32 {numbers['float32']['encode_ms']:.3f}, bf16 "
           f"{numbers['bfloat16']['encode_ms']:.3f} (rounds f32 {[round(x, 3) for x in encode_ms['float32']]}, bf16 "
-          f"{[round(x, 3) for x in encode_ms['bfloat16']]}) | refinement convs (two 7x7) ms f32 "
-          f"{numbers['float32']['refinement_ms']:.3f}, bf16 {numbers['bfloat16']['refinement_ms']:.3f} (on a "
-          f"channels-last input: f32 {numbers['float32']['refinement_channels_last_ms']:.3f}, bf16 "
-          f"{numbers['bfloat16']['refinement_channels_last_ms']:.3f}) | epipolar "
-          f"transformer ms f32 {numbers['float32']['epipolar_transformer_ms']:.3f}, bf16 "
+          f"{[round(x, 3) for x in encode_ms['bfloat16']]}) | upscale and refinement convs (span encoder.refine) "
+          f"ms f32 {numbers['float32']['refinement_ms']:.3f}, bf16 {numbers['bfloat16']['refinement_ms']:.3f} | "
+          f"epipolar transformer ms f32 {numbers['float32']['epipolar_transformer_ms']:.3f}, bf16 "
           f"{numbers['bfloat16']['epipolar_transformer_ms']:.3f} | allow_bf16_reduced_precision_reduction {reduced}")
     del scenes, encoders, aos, color
     torch.cuda.empty_cache()
@@ -2930,8 +2943,6 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
 
     from pixelsplat_tpu_torch import kernel_build
-    from pixelsplat_tpu_torch.ops import kernel_tools
-    from pixelsplat_tpu_torch.ops.rasterizer import composite_ablation, composite_kernel
     from pixelsplat_tpu_torch.scripts import kernel_smoke
     from pixelsplat_tpu_torch.scripts.eval_scene import card_line
 
@@ -2950,11 +2961,11 @@ def main() -> None:
     built = kernel_build.build_all()
     build_s = time.perf_counter() - t0
     kernels = {
-        "composite_fwd": composite_kernel.composite_core,
-        "composite_bwd": composite_kernel.composite_bwd,
-        "copy_rows": kernel_tools.copy_rows,
-        "composite_fwd_ablation": composite_ablation.composite_core_ablation,
-        "smoke_scale": kernel_tools.smoke_scale,
+        "composite_fwd": "k1_launches",
+        "composite_bwd": "k2_launches",
+        "copy_rows": "copy_rows_launches",
+        "composite_fwd_ablation": "k1_ablation_launches",
+        "smoke_scale": "smoke_scale_launches",
     }
     if set(built) != set(kernels):
         fail(f"built {sorted(built)}, expected the kernels {sorted(kernels)}")

@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from ..utils import tracing
+
 _F32_EPS = float(torch.finfo(torch.float32).eps)
 
 
@@ -229,7 +231,8 @@ def get_fov(intrinsics: torch.Tensor) -> torch.Tensor:
     intrinsics_inv = inverse_intrinsics(intrinsics)
 
     def process(vector):
-        vector = torch.tensor(vector, dtype=intrinsics.dtype, device=intrinsics.device)
+        with tracing.sync_point("upload.fov_vector"):
+            vector = torch.tensor(vector, dtype=intrinsics.dtype, device=intrinsics.device)
         vector = intrinsics_inv @ vector
         return vector / torch.linalg.vector_norm(vector, dim=-1, keepdim=True)
 

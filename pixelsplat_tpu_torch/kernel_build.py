@@ -22,6 +22,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from .utils import tracing
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
@@ -77,7 +79,9 @@ def build(name: str, csrc: Path | None = None) -> tuple[Path, str]:
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(csrc / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tracing.span("setup.kernel_build"):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    tracing.count("kernel_builds")
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}\n{proc.stderr}")

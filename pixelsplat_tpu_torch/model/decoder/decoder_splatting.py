@@ -16,6 +16,7 @@ import torch
 
 from ...ops.rasterizer.projection import GaussiansSoA, pack_gaussians_soa
 from ...ops.rasterizer.render import DepthRenderingMode, RenderSettings, render_depth, render_view_soa
+from ...utils import tracing
 from ..types import Gaussians
 
 
@@ -53,9 +54,10 @@ class DecoderSplatting:
         if depth_mode is not None and isinstance(gaussians, GaussiansSoA):
             raise NotImplementedError("depth_mode rendering takes the public AoS Gaussians")
         settings = render_settings if render_settings is not None else self.cfg.render
-        background = torch.tensor(
-            self.cfg.background_color, dtype=extrinsics.dtype, device=extrinsics.device
-        )
+        with tracing.sync_point("upload.background"):
+            background = torch.tensor(
+                self.cfg.background_color, dtype=extrinsics.dtype, device=extrinsics.device
+            )
         colors, overflows = [], []
         for i in range(extrinsics.shape[0]):
             if isinstance(gaussians, GaussiansSoA):

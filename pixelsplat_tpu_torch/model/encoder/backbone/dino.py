@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ....utils import tracing
 from ... import precision
 from .resnet import BackboneResnet, BackboneResnetCfg
 
@@ -80,10 +81,12 @@ def resize_pos_embed(grid: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor
     _, h0, w0, _ = grid.shape
     h, w = shape
     if h != h0:
-        m = torch.as_tensor(_keys_cubic_resize_matrix(h0, h), device=grid.device)
+        with tracing.sync_point("upload.pos_embed_resize"):
+            m = torch.as_tensor(_keys_cubic_resize_matrix(h0, h), device=grid.device)
         grid = torch.einsum("bhwc,hH->bHwc", grid, m)
     if w != w0:
-        m = torch.as_tensor(_keys_cubic_resize_matrix(w0, w), device=grid.device)
+        with tracing.sync_point("upload.pos_embed_resize"):
+            m = torch.as_tensor(_keys_cubic_resize_matrix(w0, w), device=grid.device)
         grid = torch.einsum("bhwc,wW->bhWc", grid, m)
     return grid
 

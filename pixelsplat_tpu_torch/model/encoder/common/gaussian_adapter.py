@@ -17,6 +17,7 @@ import torch
 
 from ....geometry.projection import get_world_rays
 from ....ops.sh import apply_sh_rotation, full_sh_rotation_matrix
+from ....utils import tracing
 from .gaussians import build_world_covariance
 
 
@@ -74,7 +75,8 @@ class GaussianAdapter:
             cfg.gaussian_scale_max - cfg.gaussian_scale_min
         ) * torch.sigmoid(scales)
         h, w = image_shape
-        pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=scales.dtype, device=scales.device)
+        with tracing.sync_point("upload.pixel_size"):
+            pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=scales.dtype, device=scales.device)
         multiplier = self.get_scale_multiplier(intrinsics, pixel_size)
         scales = scales * depths[..., None] * multiplier[..., None]
 
@@ -85,7 +87,9 @@ class GaussianAdapter:
         covariances = build_world_covariance(scales, rotations, c2w_rotations)
 
         sh_m = full_sh_rotation_matrix(c2w_rotations, cfg.sh_degree)
-        sh_m = sh_m * self.sh_mask.to(sh_m.device)  # rotate(mask * sh)
+        with tracing.sync_point("upload.sh_mask"):
+            sh_mask = self.sh_mask.to(sh_m.device)
+        sh_m = sh_m * sh_mask  # rotate(mask * sh)
         harmonics = apply_sh_rotation(sh, sh_m[..., None, :, :])
 
         origins, directions = get_world_rays(coordinates, extrinsics, intrinsics)

@@ -25,6 +25,7 @@ from torch import nn
 
 from ...geometry.projection import sample_image_grid
 from ...ops.rasterizer.projection import GaussiansSoA
+from ...utils import tracing
 from ...utils.shape_checks import check_context
 from .. import precision
 from ..types import Gaussians
@@ -157,8 +158,9 @@ class EncoderEpipolar(nn.Module):
         image = context["image"]
         b, v, _, h, w = image.shape
 
-        features = self.backbone(image)  # (b, v, h, w, c)
-        features = self.backbone_projection(features)
+        with tracing.span("encoder.backbone"):
+            features = self.backbone(image)  # (b, v, h, w, c)
+            features = self.backbone_projection(features)
 
         sampling = None
         if cfg.use_epipolar_transformer:
@@ -169,6 +171,19 @@ class EncoderEpipolar(nn.Module):
                 view_order=view_order,
             )
 
+        with tracing.span("encoder.heads"):
+            return self._gaussians(
+                features, context, global_step, deterministic, pack_soa, u, generator, sampling, visualization_dump
+            )
+
+    def _gaussians(self, features, context, global_step, deterministic, pack_soa, u, generator, sampling,
+                   visualization_dump):
+        """The heads on the transformer's features: the high-resolution
+        skip, the depth predictor, the Gaussian head and adapter, and the
+        packing `forward` describes."""
+        cfg = self.cfg
+        image = context["image"]
+        b, v, _, h, w = image.shape
         skip = self.high_resolution_skip(image.reshape(b * v, 3, h, w))
         features = features + skip.permute(0, 2, 3, 1).reshape(b, v, h, w, cfg.d_feature)
 
@@ -185,7 +200,8 @@ class EncoderEpipolar(nn.Module):
         xy_ray, _ = sample_image_grid((h, w), device=features.device, dtype=features.dtype)
         xy_ray = xy_ray.reshape(h * w, 1, 2)
         offset_xy = torch.sigmoid(raw[..., :2])
-        pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=features.dtype, device=features.device)
+        with tracing.sync_point("upload.pixel_size"):
+            pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=features.dtype, device=features.device)
         xy_ray = xy_ray[None, None] + (offset_xy - 0.5) * pixel_size
 
         gaussians = adapter(
@@ -207,6 +223,7 @@ class EncoderEpipolar(nn.Module):
             if sampling is not None:
                 visualization_dump["sampling"] = sampling
         g = v * (h * w) * srf * spp
+        tracing.count("gaussians", b * g)
         opacities = gaussians.opacities
         if cfg.predict_opacity:
             opacities = torch.sigmoid(self.to_opacity(features))[..., None] * opacities  # (b, v, r, 1, 1)

@@ -14,6 +14,7 @@ import torch
 from ....geometry.epipolar_lines import project_rays
 from ....geometry.projection import get_world_rays, sample_image_grid
 from ....ops.grid_sample import grid_sample_nhwc_flat
+from ....utils import tracing
 from ....utils.pairings import generate_heterogeneous_index
 
 
@@ -31,7 +32,9 @@ class EpipolarSampling(NamedTuple):
 def collect_other_views(target: torch.Tensor, v: int) -> torch.Tensor:
     """(b, v, ...) -> (b, v, v-1, ...) selecting, per view, all other views."""
     _, index_other = generate_heterogeneous_index(v)
-    return target[:, torch.as_tensor(index_other, device=target.device)]
+    with tracing.sync_point("upload.view_index"):
+        index = torch.as_tensor(index_other, device=target.device)
+    return target[:, index]
 
 
 def sample_along_epipolar_lines(

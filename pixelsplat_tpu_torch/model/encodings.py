@@ -12,12 +12,15 @@ import math
 import torch
 from torch import nn
 
+from ..utils import tracing
+
 
 def positional_encoding(samples: torch.Tensor, num_octaves: int) -> torch.Tensor:
     """samples (..., d) -> (..., d * num_octaves * 2)."""
     octaves = torch.arange(num_octaves, dtype=samples.dtype, device=samples.device)
     frequencies = 2.0 * math.pi * 2.0**octaves  # (f,)
-    phases = torch.tensor([0.0, 0.5 * math.pi], dtype=samples.dtype, device=samples.device)  # (p,)
+    with tracing.sync_point("upload.phases"):
+        phases = torch.tensor([0.0, 0.5 * math.pi], dtype=samples.dtype, device=samples.device)  # (p,)
     scaled = samples[..., None, None] * frequencies[:, None] + phases  # (..., d, f, p)
     return torch.sin(scaled).reshape(*samples.shape[:-1], -1)
 

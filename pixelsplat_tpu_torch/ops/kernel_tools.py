@@ -6,8 +6,9 @@ the row-major copy, and the segment sums that the bench compares.
 _force_row_major_u16` (a row-major copy of a 2-D table of any strides).
 On a CUDA tensor each launches its kernel (`csrc/smoke_scale.cu`,
 `csrc/copy_rows.cu`) or raises; on a CPU tensor it runs its plain version
-(`smoke_scale_plain`, `copy_rows_plain`). `smoke_scale.launches` and
-`copy_rows.launches` count kernel launches. `copy_rows_route` picks the
+(`smoke_scale_plain`, `copy_rows_plain`). The tracer's counters
+`smoke_scale_launches` and `copy_rows_launches` count kernel launches.
+`copy_rows_route` picks the
 copy kernel's route from the input's layout. Every wrapper launches through
 `_launch`, whose per-call host work is the checks, one allocation and the
 ctypes call: both kernels are so short that a call's time is the host's.
@@ -25,6 +26,7 @@ import functools
 import torch
 
 from .. import kernel_build
+from ..utils import tracing
 
 
 def _require_cuda_or_cpu(x: torch.Tensor, name: str) -> bool:
@@ -99,11 +101,8 @@ def smoke_scale(x: torch.Tensor) -> torch.Tensor:
             raise RuntimeError(f"smoke_scale launch failed: error {err}")
     else:
         _launch("smoke_scale", _smoke_entry_point(), index, x.data_ptr(), y.data_ptr(), x.numel())
-    smoke_scale.launches += 1
+    tracing.count_launch("smoke_scale_launches")
     return y
-
-
-smoke_scale.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -168,11 +167,8 @@ def copy_rows(x: torch.Tensor) -> torch.Tensor:
         raise RuntimeError("copy_rows: the output is not 16-byte aligned")
     route = COPY_ROUTES.index(copy_rows_route(shape, strides, itemsize, in_ptr, out_ptr))
     _launch("copy_rows", _copy_rows_library().copy_rows, x.get_device(), in_ptr, out_ptr, *shape, *strides, itemsize, route)
-    copy_rows.launches += 1
+    tracing.count_launch("copy_rows_launches")
     return out
-
-
-copy_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------

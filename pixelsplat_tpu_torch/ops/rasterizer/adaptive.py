@@ -5,8 +5,8 @@ Port of `pixelsplat_tpu/ops/rasterizer/adaptive.py` (`_occupancy_stats`,
 measures the scene's largest per-tile list and its flat pair demand; the
 smallest sufficient capacity and pair budget then render without dropping
 a pair, because the pre-pass bounds what binning (which also culls by the
-exact ellipse) produces. Choosing costs one host sync, so it runs once per
-scene.
+exact ellipse) produces. Choosing reads three numbers back from the device
+(the `settings.read` sync points), so it runs once per scene.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from dataclasses import replace
 
 import torch
 
+from ...utils import tracing
 from .binning import count_big, default_pair_budget, tile_occupancy
 from .projection import project_gaussians
 from .render import DEFAULT_SETTINGS, RenderSettings, render
@@ -38,23 +39,28 @@ def _occupancy_stats(
     the big-list capacity that holds every view's big Gaussians (at least
     `big_capacity`). `scale_invariant` as in `render`."""
     projected = []
-    for e, k, n, m, c, o in zip(extrinsics, intrinsics, near, means, covariances, opacities):
-        scale = 1.0 / n if scale_invariant else torch.ones_like(n)
-        e = e.clone()
-        e[:3, 3] = e[:3, 3] * scale
-        projected.append(project_gaussians(
-            e, k, image_shape, m * scale, c * scale**2, o,
-            colors_precomp=torch.zeros((m.shape[0], 1), dtype=m.dtype, device=m.device),
-        ))
-    n_big = int(torch.stack([count_big(p, image_shape, tile_size, span) for p in projected]).max())
+    with tracing.span("settings.project"):
+        for e, k, n, m, c, o in zip(extrinsics, intrinsics, near, means, covariances, opacities):
+            scale = 1.0 / n if scale_invariant else torch.ones_like(n)
+            e = e.clone()
+            e[:3, 3] = e[:3, 3] * scale
+            projected.append(project_gaussians(
+                e, k, image_shape, m * scale, c * scale**2, o,
+                colors_precomp=torch.zeros((m.shape[0], 1), dtype=m.dtype, device=m.device),
+            ))
+    with tracing.span("settings.occupancy"):
+        n_big = torch.stack([count_big(p, image_shape, tile_size, span) for p in projected]).max()
+    with tracing.sync_point("settings.read"):
+        n_big = int(n_big)
     if n_big > big_capacity:
         big_capacity = -(-n_big // chunk) * chunk
-    stats = [
-        tile_occupancy(p, image_shape, tile_size=tile_size, span=span, big_capacity=big_capacity, chunk=chunk)
-        for p in projected
-    ]
-    max_counts, budgets = zip(*stats)
-    return torch.stack(max_counts).max(), torch.stack(budgets).max(), big_capacity
+    with tracing.span("settings.occupancy"):
+        stats = [
+            tile_occupancy(p, image_shape, tile_size=tile_size, span=span, big_capacity=big_capacity, chunk=chunk)
+            for p in projected
+        ]
+        max_counts, budgets = zip(*stats)
+        return torch.stack(max_counts).max(), torch.stack(budgets).max(), big_capacity
 
 
 def choose_settings(
@@ -80,10 +86,12 @@ def choose_settings(
         gaussian_opacities, image_shape, settings.tile_size, settings.span,
         settings.big_capacity, settings.chunk,
     )
-    max_count = int(max_count.item() * margin)
+    with tracing.sync_point("settings.read"):
+        max_count = int(max_count.item() * margin)
     h, w = image_shape
     num_tiles = (-(-w // settings.tile_size)) * (-(-h // settings.tile_size))
-    budget = int(budget.item() * margin) + (num_tiles * settings.chunk if margin > 1 else 0)
+    with tracing.sync_point("settings.read"):
+        budget = int(budget.item() * margin) + (num_tiles * settings.chunk if margin > 1 else 0)
 
     chosen = replace(settings, big_capacity=big_capacity)
     for c in sorted(capacities):
@@ -93,6 +101,9 @@ def choose_settings(
     g = gaussian_means.shape[1]
     worst = settings.span**2 * g + num_tiles * (big_capacity + settings.chunk)
     pair_budget = -(-max(min(budget, worst), 65536) // settings.chunk) * settings.chunk
+    tracing.count("capacity", chosen.capacity)
+    tracing.count("pair_budget", pair_budget)
+    tracing.count("big_capacity", big_capacity)
     return replace(chosen, pair_budget=pair_budget)
 
 
@@ -109,14 +120,17 @@ def sufficient_settings(
 ) -> RenderSettings:
     """`settings` where they hold these views' lists, else with the tile
     capacity, the big list and the pair budget each grown (in whole chunks)
-    to what the views need, so that no pair is dropped. One host sync."""
+    to what the views need, so that no pair is dropped. Three reads back from the device."""
     max_count, budget, big_capacity = _occupancy_stats(
         extrinsics, intrinsics, near, gaussian_means, gaussian_covariances,
         gaussian_opacities, image_shape, settings.tile_size, settings.span,
         settings.big_capacity, settings.chunk, scale_invariant,
     )
     chunk = settings.chunk
-    max_count, budget = int(max_count), int(budget)
+    with tracing.sync_point("settings.read"):
+        max_count = int(max_count)
+    with tracing.sync_point("settings.read"):
+        budget = int(budget)
     chosen = settings
     if max_count > settings.capacity:
         chosen = replace(chosen, capacity=-(-max_count // chunk) * chunk)

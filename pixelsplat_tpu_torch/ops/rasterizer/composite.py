@@ -10,13 +10,16 @@ of the early-exiting forward, not of an exact compositor.
 
 The compositor stops a tile once every pixel's transmittance is below
 1e-4 (checked after each chunk), where the CUDA 3DGS rasterizer stops each
-pixel on its own: the two differ by at most 1e-4 times a colour.
+pixel on its own. A pixel that falls below 1e-4 before the rest of its
+tile composites on here, so behind dense opaque Gaussians the two differ by
+up to 1e-2 of a colour (PERF.md, section 6).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...utils import tracing
 from .binning import TileLists
 from .composite_kernel import MAX_COLOURS, ROW, composite_bwd, composite_core
 from .projection import ProjectedGaussians
@@ -103,8 +106,9 @@ def composite_tiles(
     """Returns the (channels, h, w) composited image, differentiable in the
     projected Gaussians' means, conics, opacities and colours."""
     tiles_x = -(-image_shape[1] // tile_size)
-    table = pack_columns(projected).contiguous()
-    acc, trans, _ = CompositePacked.apply(
-        table, tiles.flat, tiles.block_start, tiles.counts, tiles_x, chunk, tile_size
-    )  # acc: (T, 8, P)
-    return assemble_image(acc, trans, background, image_shape, tile_size)
+    with tracing.span("render.composite"):
+        table = pack_columns(projected).contiguous()
+        acc, trans, _ = CompositePacked.apply(
+            table, tiles.flat, tiles.block_start, tiles.counts, tiles_x, chunk, tile_size
+        )  # acc: (T, 8, P)
+        return assemble_image(acc, trans, background, image_shape, tile_size)

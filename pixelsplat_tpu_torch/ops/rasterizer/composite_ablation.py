@@ -14,7 +14,7 @@ its plain version is `composite_core_plain(..., early_exit=False)`;
 `exit_vote` is the production loop, whose plain version is
 `composite_core_plain`. The other variants are wrong on purpose and have
 no plain version: they exist on the card only.
-`composite_core_ablation.launches` counts kernel launches.
+The tracer's counter `k1_ablation_launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import functools
 import torch
 
 from ... import kernel_build
+from ...utils import tracing
 from .composite_kernel import CH_PAD, KERNEL_TILE, _check_lists, composite_core_plain
 
 DROP_GATHER, DROP_POWER, DROP_EXP_POWER, DROP_TRANSMITTANCE, DROP_COLOURS = 1, 2, 4, 8, 16
@@ -89,8 +90,5 @@ def composite_core_ablation(
         )
     if err != 0:
         raise RuntimeError(f"composite_fwd_ablation ({variant}) launch failed: cudaError {err}")
-    composite_core_ablation.launches += 1
+    tracing.count_launch("k1_ablation_launches")
     return acc, trans, n_proc
-
-
-composite_core_ablation.launches = 0

@@ -18,10 +18,11 @@ returns `d_table (rows, 12)`, the gradient of the parameter table.
 On a CUDA tensor each wrapper launches its kernel (`csrc/composite_fwd.cu`,
 `csrc/composite_bwd.cu`) or raises; on a CPU tensor it runs its plain
 version (`composite_core_plain`, `composite_bwd_plain`).
-`composite_core.launches` and `composite_bwd.launches` count calls that
-launch: one call of `composite_bwd` enqueues the backward's four device
-kernels (chunk map, per-chunk sums, scan, per-chunk gradients), whose
-block-to-tile map has `chunk_block_map_plain` as its plain twin.
+The tracer's counters `k1_launches` and `k2_launches` count calls that
+launch, each inside a `kernel.k1` or `kernel.k2` span: one call of
+`composite_bwd` enqueues the backward's four device kernels (chunk map,
+per-chunk sums, scan, per-chunk gradients), whose block-to-tile map has
+`chunk_block_map_plain` as its plain twin.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import functools
 import torch
 
 from ... import kernel_build
+from ...utils import tracing
 
 CH_PAD = 8  # output channels: <= 6 colours, then two zero channels
 MAX_COLOURS = 6
@@ -144,7 +146,7 @@ def _launch(table, flat, block_start, counts, tiles_x, chunk):
     acc = torch.empty((num_tiles, CH_PAD, p), dtype=torch.float32, device=table.device)
     trans = torch.empty((num_tiles, p), dtype=torch.float32, device=table.device)
     n_proc = torch.empty((num_tiles,), dtype=torch.int32, device=table.device)
-    with torch.cuda.device(table.device):
+    with torch.cuda.device(table.device), tracing.span("kernel.k1"):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             table.data_ptr(), flat.data_ptr(), block_start.data_ptr(), counts.data_ptr(),
@@ -153,7 +155,7 @@ def _launch(table, flat, block_start, counts, tiles_x, chunk):
         )
     if err != 0:
         raise RuntimeError(f"composite_fwd launch failed: cudaError {err}")
-    composite_core.launches += 1
+    tracing.count_launch("k1_launches")
     return acc, trans, n_proc
 
 
@@ -174,9 +176,6 @@ def composite_core(
     if tile_size != KERNEL_TILE:
         raise NotImplementedError(f"the CUDA compositor takes {KERNEL_TILE}x{KERNEL_TILE} tiles")
     return _launch(table, flat, block_start, counts, tiles_x, chunk)
-
-
-composite_core.launches = 0
 
 
 def composite_bwd_plain(
@@ -367,7 +366,7 @@ def _launch_bwd(table, flat, block_start, counts, n_proc, trans, g_acc, g_trans,
     # seeds (log T, S); per flat block its tile or -1.
     sums = torch.empty((n_blocks, p, 2), dtype=torch.float32, device=table.device)
     block_map = torch.empty((n_blocks,), dtype=torch.int32, device=table.device)
-    with torch.cuda.device(table.device):
+    with torch.cuda.device(table.device), tracing.span("kernel.k2"):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             table.data_ptr(), flat.data_ptr(), block_start.data_ptr(), counts.data_ptr(),
@@ -377,7 +376,7 @@ def _launch_bwd(table, flat, block_start, counts, n_proc, trans, g_acc, g_trans,
         )
     if err != 0:
         raise RuntimeError(f"composite_bwd launch failed: cudaError {err}")
-    composite_bwd.launches += 1
+    tracing.count_launch("k2_launches")
     return d_table
 
 
@@ -404,6 +403,3 @@ def composite_bwd(
     if tile_size != KERNEL_TILE:
         raise NotImplementedError(f"the CUDA compositor takes {KERNEL_TILE}x{KERNEL_TILE} tiles")
     return _launch_bwd(table, flat, block_start, counts, n_proc, trans, g_acc, g_trans, tiles_x, chunk)
-
-
-composite_bwd.launches = 0

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ...geometry.projection import get_fov, inverse_se3
+from ...utils import tracing
 from ..sh import sh_basis_components
 
 
@@ -110,7 +111,9 @@ def project_gaussians_soa(
     h, w = image_shape
     dtype = soa.mean_x.dtype
 
-    w2c = inverse_se3(extrinsics)
+    # On a CUDA tensor the write of the inverse's constant row waits for the device.
+    with tracing.sync_point("upload.inverse_se3"):
+        w2c = inverse_se3(extrinsics)
     rot = w2c[:3, :3]
     cam_pos = extrinsics[:3, 3]
 

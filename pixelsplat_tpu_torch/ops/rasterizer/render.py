@@ -17,6 +17,7 @@ from typing import Literal, Optional
 import torch
 
 from ...geometry.projection import inverse_se3
+from ...utils import tracing
 from ...utils.shape_checks import check_cameras, check_gaussians
 from .binning import TileLists, bin_gaussians
 from .composite import composite_tiles
@@ -67,30 +68,34 @@ def project_and_bin(
     settings: RenderSettings = DEFAULT_SETTINGS,
 ) -> tuple[ProjectedGaussians, TileLists]:
     """One view's projected Gaussians and tile lists: the compositor's inputs."""
-    if scale_invariant:
-        # Rescale the world by 1/near so the 0.2 near clip in the projector
-        # never bites real geometry.
-        scale = 1.0 / near
-        extrinsics = extrinsics.clone()
-        extrinsics[:3, 3] = extrinsics[:3, 3] * scale
-        soa = soa._replace(
-            mean_x=soa.mean_x * scale,
-            mean_y=soa.mean_y * scale,
-            mean_z=soa.mean_z * scale,
-            cov=soa.cov * scale**2,
+    with tracing.span("render.project"):
+        if scale_invariant:
+            # Rescale the world by 1/near so the 0.2 near clip in the projector
+            # never bites real geometry.
+            scale = 1.0 / near
+            extrinsics = extrinsics.clone()
+            extrinsics[:3, 3] = extrinsics[:3, 3] * scale
+            soa = soa._replace(
+                mean_x=soa.mean_x * scale,
+                mean_y=soa.mean_y * scale,
+                mean_z=soa.mean_z * scale,
+                cov=soa.cov * scale**2,
+            )
+        projected = project_gaussians_soa(extrinsics, intrinsics, image_shape, soa)
+    with tracing.span("render.bin"):
+        tiles = bin_gaussians(
+            projected,
+            image_shape,
+            tile_size=settings.tile_size,
+            capacity=settings.capacity,
+            span=settings.span,
+            big_capacity=settings.big_capacity,
+            chunk=settings.chunk,
+            pair_budget=settings.pair_budget,
+            force_wide_keys=settings.force_wide_keys,
         )
-    projected = project_gaussians_soa(extrinsics, intrinsics, image_shape, soa)
-    tiles = bin_gaussians(
-        projected,
-        image_shape,
-        tile_size=settings.tile_size,
-        capacity=settings.capacity,
-        span=settings.span,
-        big_capacity=settings.big_capacity,
-        chunk=settings.chunk,
-        pair_budget=settings.pair_budget,
-        force_wide_keys=settings.force_wide_keys,
-    )
+    tracing.count_device("pairs_binned", tiles.counts)
+    tracing.count_device("pairs_dropped", tiles.overflow)
     return projected, tiles
 
 

@@ -19,6 +19,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 MAX_DEGREE = 4
 
 
@@ -114,8 +116,10 @@ def sh_rotation_matrix(rotations: torch.Tensor, degree: int) -> torch.Tensor:
             (*rotations.shape[:-2], 1, 1), dtype=rotations.dtype, device=rotations.device
         )
     dirs, pinv = _fixed_directions_and_pinv(degree)
-    dirs = torch.as_tensor(dirs, dtype=rotations.dtype, device=rotations.device)
-    pinv = torch.as_tensor(pinv, dtype=rotations.dtype, device=rotations.device)
+    with tracing.sync_point("upload.sh_rotation"):
+        dirs = torch.as_tensor(dirs, dtype=rotations.dtype, device=rotations.device)
+    with tracing.sync_point("upload.sh_rotation"):
+        pinv = torch.as_tensor(pinv, dtype=rotations.dtype, device=rotations.device)
     rotated = dirs @ rotations.transpose(-1, -2)  # (..., N, 3)
     basis_rot = torch.stack(
         sh_basis_components(rotated[..., 0], rotated[..., 1], rotated[..., 2], degree)[

@@ -66,16 +66,15 @@ def eval_batch(scene, seed: int) -> dict:
 
 
 def launches() -> dict:
-    from ..ops.rasterizer import composite_kernel
+    from ..utils import tracing
 
-    return {"composite_fwd": composite_kernel.composite_core.launches,
-            "composite_bwd": composite_kernel.composite_bwd.launches}
+    return {"composite_fwd": tracing.counter("k1_launches"), "composite_bwd": tracing.counter("k2_launches")}
 
 
 def reset_launches() -> None:
-    from ..ops.rasterizer import composite_kernel
+    from ..utils import tracing
 
-    composite_kernel.composite_core.launches = composite_kernel.composite_bwd.launches = 0
+    tracing.reset()
 
 
 def rank_main(args) -> None:

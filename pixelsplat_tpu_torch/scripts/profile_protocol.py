@@ -52,9 +52,9 @@ from .. import kernel_build  # noqa: E402
 from .. import main as cli  # noqa: E402
 from ..config import load_config  # noqa: E402
 from ..dataset.data_module import DataModule  # noqa: E402
-from ..ops.rasterizer.composite_kernel import composite_core  # noqa: E402
 from ..training import trainer as trainer_module  # noqa: E402
 from ..training.trainer import RESULTS_NAME  # noqa: E402
+from ..utils import tracing  # noqa: E402
 from .eval_scene import card_line  # noqa: E402
 
 IMPORTS_S = time.perf_counter() - PROCESS_T0
@@ -138,7 +138,7 @@ def run_protocol(argv: list[str], device: Union[str, torch.device]) -> dict:
     loop timed; the per-scene numbers."""
     record = {"wait": [], "arrival": [], "end": None}
     calls = {k: [] for k in ("copy", "psnr", "ssim", "png", "nvcc")}
-    composite_core.launches = 0
+    tracing.reset()
     t0 = time.perf_counter()
     with ExitStack() as stack:
         stack.enter_context(timed(trainer_module, "batch_to", calls["copy"], sync=True))
@@ -151,7 +151,7 @@ def run_protocol(argv: list[str], device: Union[str, torch.device]) -> dict:
         stack.callback(setattr, DataModule, "test_dataloader", test_dataloader)
         summary = cli.main(argv, device=device)
     wall = time.perf_counter() - t0
-    launches = composite_core.launches
+    launches = tracing.counter("k1_launches")
 
     cfg = load_config(argv)
     results = Path(cfg.test.output_path) / RESULTS_NAME

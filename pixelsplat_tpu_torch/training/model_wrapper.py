@@ -386,7 +386,7 @@ class ModelWrapper:
         image_shape: tuple[int, int],
     ) -> RenderSettings:
         """Occupancy-adaptive render settings for batch element 0's views
-        (one host sync per scene)."""
+        (three reads back from the device per scene, `choose_settings`)."""
         if isinstance(gaussians, GaussiansSoA):
             means = torch.stack(
                 [gaussians.mean_x[0], gaussians.mean_y[0], gaussians.mean_z[0]], dim=-1

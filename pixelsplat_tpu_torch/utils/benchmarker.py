@@ -5,7 +5,9 @@ the benchmarker was made for (`torch.cuda.synchronize`; nothing on the
 CPU), so a timed block that ends in it times the device's work.
 `time_device` times the work a block queues on the card with CUDA events,
 without a sync: the events are read when the times are (`dump`,
-`summarize`); on the CPU it is `time`.
+`summarize`); on the CPU it is `time`. Its blocks are the tracer's spans
+(`utils/tracing.py::Span`), so each also lands in a `torch.profiler`
+trace under its tag.
 `dump_memory` writes `torch.cuda.memory_stats` as ints, with the two keys
 that `paper/generate_benchmark_table.py` reads, `peak_bytes_in_use` and
 `bytes_in_use`; on the CPU it writes `{}`.
@@ -22,6 +24,8 @@ from typing import Iterator, Union
 
 import numpy as np
 import torch
+
+from .tracing import Span
 
 
 class Benchmarker:
@@ -50,14 +54,8 @@ class Benchmarker:
             with self.time(tag):
                 yield
             return
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        try:
+        with Span(tag, lambda name, start, end, _host_s: self._events.append((name, start, end)), cuda=True):
             yield
-        finally:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            self._events.append((tag, start, end))
 
     def _read_events(self) -> None:
         if self._events:
