@@ -236,9 +236,21 @@ Phases, each reported on its own lines; any failure exits non-zero:
    the CPU within 1e-4 relative. Prints the seconds of (a), (b), (c) and
    the protocol's ms per scene beside the card line.
 
+After phase 4, project_bin (`scripts/check_project_bin.py`): for the
+`re10k` and `re10k_3_view` evaluation scenes, the projection kernel against
+its plain version on every target view (every field and the colour within
+1e-5 of its largest magnitude, `valid` or a radius different for at most
+1e-4 of the Gaussians), the binning kernels against `bin_gaussians_plain` on
+every caller's shapes (each target view at the chosen settings, wide keys,
+span 3, a one-channel depth colour, a big list that overflows, a 1024x1024
+orthographic view, the XY projection): every list entry equal; the
+occupancy kernel against `count_big` and `tile_occupancy`: every integer
+equal; one scene's launches (4 projections, 3 binnings, 1 occupancy
+count); then each stage's ms against its plain version and its bound.
+
 Every kernel's launch count is set to 0 just before each path is driven
 and read just after it. The run ends with the card line, a JSON record of
-the five kernels and {"ok": true, "device": {...}}.
+the kernels and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1332,6 +1344,45 @@ def train_protocol_phase(torch, kernels) -> dict:
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     return result
+
+
+def project_bin_phase(torch) -> dict:
+    """`scripts/check_project_bin.py` on both evaluation scenes, then one
+    scene's launches of the three kernels."""
+    from pixelsplat_tpu_torch.scripts import check_project_bin
+    from pixelsplat_tpu_torch.scripts.eval_scene import make_eval_scene
+    from pixelsplat_tpu_torch.utils import tracing
+
+    record = check_project_bin.check((RE10K, "re10k_3_view"))
+    for model, r in record["models"].items():
+        worst = {f: max(v[f] for v in r["projection"])
+                 for f in check_project_bin.FIELDS[:6] + ("color", "valid_differ", "radius_differ")}
+        phase("project_bin", f"{model}: projection against plain, largest relative difference and most Gaussians "
+                             f"whose valid or radius differ, over the views: {worst}")
+        if not all(check_project_bin.projection_agrees(v) for v in r["projection"]):
+            fail(f"{model}: the projection kernel differs from its plain version beyond its tolerance: "
+                 f"{r['projection']}")
+        for name, c in r["lists"].items():
+            phase("project_bin", f"{model} {name}: lists {'equal' if c['equal'] else 'DIFFER'}, {c['pairs']} pairs, "
+                                 f"overflow {c['overflow']}")
+        for case, (kernel, plain) in r["occupancy"].items():
+            phase("project_bin", f"{model} occupancy (big list {case}): kernel {kernel}, plain {plain}")
+        for stage, t in r["times"].items():
+            phase("project_bin", f"{model} {stage}: {t['ms']:.4f} ms a call against plain {t['plain_ms']:.3f} ms; "
+                                 f"bound {t['bound_ms']:.4f} ms (bytes){''.join(f'; {k} {v}' for k, v in t.items() if k not in ('ms', 'plain_ms', 'bound_ms'))}")
+    if not record["ok"]:
+        fail("project_bin: a projection, tile list or occupancy count differs from its plain version")
+    scene = make_eval_scene("cuda", seed=SEED)
+    scene.run(SEED)
+    tracing.reset()
+    scene.run(SEED)
+    record["scene_launches"] = [
+        tracing.counter(c) for c in ("project_launches", "bin_launches", "occupancy_launches")
+    ]
+    if record["scene_launches"] != [4, 3, 1]:
+        fail(f"one scene launched project, bin, occupancy {record['scene_launches']} times, expected 4, 3, 1")
+    phase("project_bin", f"one re10k scene: project, bin, occupancy launched {record['scene_launches']} times")
+    return record
 
 
 def tools_phase(torch, kernels, first_view):
@@ -2967,8 +3018,8 @@ def main() -> None:
         "composite_fwd_ablation": "k1_ablation_launches",
         "smoke_scale": "smoke_scale_launches",
     }
-    if set(built) != set(kernels):
-        fail(f"built {sorted(built)}, expected the kernels {sorted(kernels)}")
+    if set(built) != set(kernels) | {"project_bin"}:
+        fail(f"built {sorted(built)}, expected the kernels {sorted(kernels)} and project_bin")
     for name, (path, log) in built.items():
         regs = [line.strip() for line in log.splitlines() if "registers" in line]
         phase("build", f"{name} -> {path.relative_to(ROOT)} {regs[0] if regs else ''}")
@@ -2987,6 +3038,9 @@ def main() -> None:
 
     # 4. both models, each through scene, kernels, references, training, timing
     results = {model: model_phases(torch, kernels, model, SEED) for model in (ABLATION, RE10K)}
+
+    # projection, binning and the probe's count against their plain versions
+    prep = project_bin_phase(torch)
 
     # 5. the evaluation protocol through the CLI's entry point
     protocol = eval_protocol_phase(torch, kernels)
@@ -3113,6 +3167,16 @@ def main() -> None:
             ),
         ]
     }
+    main_prep = prep["models"][RE10K]
+    for stage, launches in zip(("project", "bin", "occupancy"), prep["scene_launches"]):
+        t = main_prep["times"][stage]
+        record["kernels"].append({
+            "name": f"project_bin.{stage}", "route": "cuda", "source": "pixelsplat_tpu_torch/csrc/project_bin.cu",
+            "replaces": "no Pallas kernel: pixelsplat_tpu/ops/rasterizer/projection.py, binning.py (plain array code)",
+            "launches": launches, "launches_by_path": {"re10k scene": launches}, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "ms_by_model": {m: r["times"][stage]["ms"] for m, r in prep["models"].items()},
+        })
     for k in record["kernels"]:
         if k["launches"] == 0:
             fail(f"{k['name']} was launched no time on any path")

@@ -35,6 +35,10 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}  # by source path
+# Sources that build together, one nvcc process each, on the first load of
+# any of them from csrc/: a render needs projection and binning and K1, so
+# neither compile waits for the other.
+BUILT_TOGETHER = (("composite_fwd", "project_bin"),)
 
 
 def _nvcc() -> str:
@@ -93,20 +97,28 @@ def kernel_names() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def build_all() -> dict[str, tuple[Path, str]]:
-    """Build every kernel, one nvcc process per source, all at once."""
-    names = kernel_names()
+def build_many(names) -> dict[str, tuple[Path, str]]:
+    """Build the named kernels that are not built yet, one nvcc process per
+    source, all at once."""
+    names = list(names)
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
         return dict(zip(names, pool.map(build, names)))
 
 
+def build_all() -> dict[str, tuple[Path, str]]:
+    """Build every kernel, one nvcc process per source, all at once."""
+    return build_many(kernel_names())
+
+
 def load(name: str, csrc: Path | None = None) -> ctypes.CDLL:
     """The loaded library of <csrc>/<name>.cu (csrc/ by default), built on
-    first use."""
+    first use, with the sources `BUILT_TOGETHER` with it."""
     csrc = Path(csrc or CSRC)
     key = f"{csrc.resolve()}/{name}"
     with _lock:
         if key not in _loaded:
+            if csrc.resolve() == CSRC:
+                build_many(next((group for group in BUILT_TOGETHER if name in group), (name,)))
             path, _ = build(name, csrc)
             _loaded[key] = ctypes.CDLL(str(path))
         return _loaded[key]

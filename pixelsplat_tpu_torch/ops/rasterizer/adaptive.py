@@ -6,7 +6,10 @@ measures the scene's largest per-tile list and its flat pair demand; the
 smallest sufficient capacity and pair budget then render without dropping
 a pair, because the pre-pass bounds what binning (which also culls by the
 exact ellipse) produces. Choosing reads three numbers back from the device
-(the `settings.read` sync points), so it runs once per scene.
+(the `settings.read` sync points), so it runs once per scene. On CUDA
+tensors that need no gradient the pre-pass is one projection launch for
+all the views and the occupancy kernel (`project_bin_kernel`), which count
+what the plain `count_big` and `tile_occupancy` count.
 """
 
 from __future__ import annotations
@@ -16,8 +19,9 @@ from dataclasses import replace
 import torch
 
 from ...utils import tracing
+from . import project_bin_kernel
 from .binning import count_big, default_pair_budget, tile_occupancy
-from .projection import project_gaussians
+from .projection import GaussiansSoA, ProjectedGaussians, aos_planes, project_gaussians_soa_plain
 from .render import DEFAULT_SETTINGS, RenderSettings, render
 
 
@@ -25,9 +29,7 @@ def _occupancy_stats(
     extrinsics: torch.Tensor,  # (b, 4, 4)
     intrinsics: torch.Tensor,  # (b, 3, 3)
     near: torch.Tensor,  # (b,)
-    means: torch.Tensor,  # (b, g, 3)
-    covariances: torch.Tensor,  # (b, g, 3, 3)
-    opacities: torch.Tensor,  # (b, g)
+    planes: tuple,  # the projection's ten (b, g) planes (`soa_planes`), or (g,) ones that every view shares
     image_shape: tuple[int, int],
     tile_size: int,
     span: int,
@@ -37,17 +39,38 @@ def _occupancy_stats(
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Max per-tile count and max flat-budget demand over the b views, and
     the big-list capacity that holds every view's big Gaussians (at least
-    `big_capacity`). `scale_invariant` as in `render`."""
+    `big_capacity`). `scale_invariant` as in `render`. On CUDA tensors that
+    need no gradient, one projection kernel launch for the b views, the
+    occupancy kernel and its reduction; else the plain code, view by view."""
+    b = extrinsics.shape[0]
+    if project_bin_kernel.takes(*planes, extrinsics, intrinsics, near):
+        with tracing.span("settings.project"):
+            rows, valid = project_bin_kernel.project(
+                extrinsics, intrinsics, near if scale_invariant else None, planes, image_shape
+            )
+        projected = ProjectedGaussians(*rows, color=None, opacity=planes[9], valid=valid)
+        with tracing.span("settings.occupancy"):
+            hist, n_big_views = project_bin_kernel.occupancy(projected, b, image_shape, tile_size, span)
+        with tracing.sync_point("settings.read"):
+            n_big = max(n_big_views.tolist())
+        if n_big > big_capacity:
+            big_capacity = -(-n_big // chunk) * chunk
+        with tracing.span("settings.occupancy"):
+            max_count, budget = project_bin_kernel.occupancy_stats(hist, n_big_views, big_capacity, chunk)
+        return max_count, budget, big_capacity
+
     projected = []
     with tracing.span("settings.project"):
-        for e, k, n, m, c, o in zip(extrinsics, intrinsics, near, means, covariances, opacities):
-            scale = 1.0 / n if scale_invariant else torch.ones_like(n)
-            e = e.clone()
+        for v in range(b):
+            scale = 1.0 / near[v] if scale_invariant else torch.ones_like(near[v])
+            e = extrinsics[v].clone()
             e[:3, 3] = e[:3, 3] * scale
-            projected.append(project_gaussians(
-                e, k, image_shape, m * scale, c * scale**2, o,
-                colors_precomp=torch.zeros((m.shape[0], 1), dtype=m.dtype, device=m.device),
-            ))
+            mx, my, mz, *cov, o = (p[v] if p.ndim == 2 else p for p in planes)
+            soa = GaussiansSoA(
+                mean_x=mx * scale, mean_y=my * scale, mean_z=mz * scale, cov=torch.stack(cov) * scale**2, opacity=o,
+                colors=torch.zeros((1, mx.shape[0]), dtype=mx.dtype, device=mx.device),
+            )
+            projected.append(project_gaussians_soa_plain(e, intrinsics[v], image_shape, soa))
     with tracing.span("settings.occupancy"):
         n_big = torch.stack([count_big(p, image_shape, tile_size, span) for p in projected]).max()
     with tracing.sync_point("settings.read"):
@@ -81,9 +104,26 @@ def choose_settings(
     `margin` scales both statistics, for callers whose render cameras only
     approximate the probed ones.
     """
+    return choose_settings_planes(
+        extrinsics, intrinsics, near, aos_planes(gaussian_means, gaussian_covariances, gaussian_opacities),
+        image_shape, settings, capacities, margin,
+    )
+
+
+def choose_settings_planes(
+    extrinsics: torch.Tensor,  # (b, 4, 4) cameras of the scene's views
+    intrinsics: torch.Tensor,
+    near: torch.Tensor,
+    planes: tuple,  # the projection's ten (b, g) planes, or (g,) ones that every view shares
+    image_shape: tuple[int, int],
+    settings: RenderSettings = DEFAULT_SETTINGS,
+    capacities: tuple[int, ...] = (512, 1024, 2048),
+    margin: float = 1.0,
+) -> RenderSettings:
+    """`choose_settings` from the Gaussians' planes (`soa_planes`,
+    `aos_planes`)."""
     max_count, budget, big_capacity = _occupancy_stats(
-        extrinsics, intrinsics, near, gaussian_means, gaussian_covariances,
-        gaussian_opacities, image_shape, settings.tile_size, settings.span,
+        extrinsics, intrinsics, near, planes, image_shape, settings.tile_size, settings.span,
         settings.big_capacity, settings.chunk,
     )
     with tracing.sync_point("settings.read"):
@@ -98,7 +138,7 @@ def choose_settings(
         if max_count <= c and c <= settings.capacity:
             chosen = replace(chosen, capacity=c)
             break
-    g = gaussian_means.shape[1]
+    g = planes[0].shape[-1]
     worst = settings.span**2 * g + num_tiles * (big_capacity + settings.chunk)
     pair_budget = -(-max(min(budget, worst), 65536) // settings.chunk) * settings.chunk
     tracing.count("capacity", chosen.capacity)
@@ -122,9 +162,8 @@ def sufficient_settings(
     capacity, the big list and the pair budget each grown (in whole chunks)
     to what the views need, so that no pair is dropped. Three reads back from the device."""
     max_count, budget, big_capacity = _occupancy_stats(
-        extrinsics, intrinsics, near, gaussian_means, gaussian_covariances,
-        gaussian_opacities, image_shape, settings.tile_size, settings.span,
-        settings.big_capacity, settings.chunk, scale_invariant,
+        extrinsics, intrinsics, near, aos_planes(gaussian_means, gaussian_covariances, gaussian_opacities),
+        image_shape, settings.tile_size, settings.span, settings.big_capacity, settings.chunk, scale_invariant,
     )
     chunk = settings.chunk
     with tracing.sync_point("settings.read"):

@@ -18,6 +18,11 @@ Port of `pixelsplat_tpu/ops/rasterizer/binning.py`:
 Sorts are `torch.sort` on the same int32 keys; pairs with equal keys
 (depths that agree in their top bits, ~2^-15 relative) may come out in
 another order than the JAX package's unstable sort gives.
+
+On CUDA tensors the binning kernels run (`project_bin_kernel.bin_lists`,
+`csrc/project_bin.cu`), with or without a gradient on the inputs (binning
+has none); they give exactly `bin_gaussians_plain`'s lists, which CPU
+tensors take.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import project_bin_kernel
 from .projection import MIN_ALPHA, ProjectedGaussians
 
 _F32_EPS = float(torch.finfo(torch.float32).eps)
@@ -61,6 +67,41 @@ def default_pair_budget(g: int, num_tiles: int, big_capacity: int, span: int, ch
     return min(worst, max(2 * g + num_tiles * chunk, 65536))
 
 
+class BinShape(NamedTuple):
+    """The sizes `bin_gaussians` works at, from its arguments."""
+
+    tiles_x: int
+    tiles_y: int
+    num_tiles: int
+    capacity: int
+    big_capacity: int
+    depth_bits: int
+    wide_keys: bool
+    pair_budget: int  # rounded up to whole chunks
+
+
+def bin_shape(
+    g: int, image_shape: tuple[int, int], tile_size: int, capacity: int, span: int, big_capacity: int,
+    chunk: int, pair_budget: int | None, force_wide_keys: bool,
+) -> BinShape:
+    h, w = image_shape
+    tiles_x = -(-w // tile_size)
+    tiles_y = -(-h // tile_size)
+    num_tiles = tiles_x * tiles_y
+    big_capacity = min(big_capacity, g)
+    # Pair keys: tile id in the high bits, the top `depth_bits` of the
+    # positive-f32 depth pattern (monotone in depth) in the low bits. When
+    # the tile count leaves fewer than 12 depth bits, sort (tile, exact
+    # depth pattern) pairs as one int64 key instead.
+    depth_bits = 31 - max((num_tiles + 1).bit_length(), 1)
+    if pair_budget is None:
+        pair_budget = default_pair_budget(g, num_tiles, big_capacity, span, chunk)
+    return BinShape(
+        tiles_x, tiles_y, num_tiles, min(capacity, g * span * span), big_capacity, depth_bits,
+        force_wide_keys or depth_bits < 12, -(-pair_budget // chunk) * chunk,
+    )
+
+
 def bin_gaussians(
     projected: ProjectedGaussians,
     image_shape: tuple[int, int],
@@ -72,14 +113,34 @@ def bin_gaussians(
     pair_budget: int | None = None,
     force_wide_keys: bool = False,
 ) -> TileLists:
-    h, w = image_shape
-    tiles_x = -(-w // tile_size)
-    tiles_y = -(-h // tile_size)
-    num_tiles = tiles_x * tiles_y
+    """Each tile's front-to-back list: the kernels on CUDA tensors, else
+    `bin_gaussians_plain`."""
+    if projected.depth.device.type == "cuda":
+        shape = bin_shape(projected.depth.shape[0], image_shape, tile_size, capacity, span, big_capacity, chunk,
+                          pair_budget, force_wide_keys)
+        return TileLists(*project_bin_kernel.bin_lists(projected, shape, tile_size, span, chunk))
+    return bin_gaussians_plain(
+        projected, image_shape, tile_size, capacity, span, big_capacity, chunk, pair_budget, force_wide_keys
+    )
+
+
+def bin_gaussians_plain(
+    projected: ProjectedGaussians,
+    image_shape: tuple[int, int],
+    tile_size: int = 16,
+    capacity: int = 2048,
+    span: int = 3,
+    big_capacity: int = 128,
+    chunk: int = 128,
+    pair_budget: int | None = None,
+    force_wide_keys: bool = False,
+) -> TileLists:
+    """The binning in plain PyTorch."""
     g = projected.depth.shape[0]
     device = projected.depth.device
-    big_capacity = min(big_capacity, g)
-    capacity = min(capacity, g * span * span)
+    tiles_x, tiles_y, num_tiles, capacity, big_capacity, depth_bits, wide_keys, pair_budget = bin_shape(
+        g, image_shape, tile_size, capacity, span, big_capacity, chunk, pair_budget, force_wide_keys
+    )
     i32 = torch.int32
 
     iota = torch.arange(g, dtype=i32, device=device)
@@ -135,12 +196,6 @@ def bin_gaussians(
     small = valid & (span_x <= span) & (span_y <= span)
     big = valid & ~small
 
-    # Pair keys: tile id in the high bits, the top `depth_bits` of the
-    # positive-f32 depth pattern (monotone in depth) in the low bits. When
-    # the tile count leaves fewer than 12 depth bits, sort (tile, exact
-    # depth pattern) pairs as one int64 key instead.
-    depth_bits = 31 - max((num_tiles + 1).bit_length(), 1)
-    wide_keys = force_wide_keys or depth_bits < 12
     depth_pattern = torch.clamp(projected.depth, min=0.0).to(torch.float32).view(i32)
     dq = depth_pattern if wide_keys else depth_pattern >> (31 - depth_bits)
     tile_shift = 1 << max(depth_bits, 0)
@@ -232,9 +287,6 @@ def bin_gaussians(
     counts = torch.clamp(raw_counts, max=capacity)
     overflow = overflow + (raw_counts - counts).sum().to(i32)
 
-    if pair_budget is None:
-        pair_budget = default_pair_budget(g, num_tiles, big_capacity, span, chunk)
-    pair_budget = -(-pair_budget // chunk) * chunk
     nb = pair_budget // chunk
 
     blocks = -(-counts // chunk)

@@ -7,6 +7,12 @@ SH colour (+0.5, clamped at 0), as in the 3DGS CUDA rasterizer's
 preprocess stage. Every per-Gaussian output is a plain (g,) vector
 (colours (channels, g)), which is the layout binning and the compositing
 table read.
+
+On CUDA tensors that need no gradient the projection kernel runs
+(`project_bin_kernel.project`, `csrc/project_bin.cu`): one launch a view,
+with the camera's inverse and field of view computed on the device, so no
+host sync. `project_gaussians_soa_plain` is its plain version, which CPU
+tensors and the autograd path (training's renders) take.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 from ...geometry.projection import get_fov, inverse_se3
 from ...utils import tracing
 from ..sh import sh_basis_components
+from . import project_bin_kernel
 
 
 class GaussiansSoA(NamedTuple):
@@ -102,12 +109,69 @@ def project_gaussians(
     return project_gaussians_soa(extrinsics, intrinsics, image_shape, soa)
 
 
+def soa_planes(soa: GaussiansSoA) -> tuple:
+    """The ten per-Gaussian planes the projection reads: mean x, y, z, the
+    covariance's s00, s01, s02, s11, s12, s22, and opacity."""
+    return (soa.mean_x, soa.mean_y, soa.mean_z, *soa.cov, soa.opacity)
+
+
+def aos_planes(means: torch.Tensor, covariances: torch.Tensor, opacities: torch.Tensor) -> tuple:
+    """`soa_planes` of (..., g, 3) means, (..., g, 3, 3) covariances and
+    (..., g) opacities, as views (no copies)."""
+    c = covariances
+    return (means[..., 0], means[..., 1], means[..., 2], c[..., 0, 0], c[..., 0, 1], c[..., 0, 2],
+            c[..., 1, 1], c[..., 1, 2], c[..., 2, 2], opacities)
+
+
 def project_gaussians_soa(
     extrinsics: torch.Tensor,  # (4, 4) camera-to-world
     intrinsics: torch.Tensor,  # (3, 3) normalized
     image_shape: tuple[int, int],
     soa: GaussiansSoA,
+    near: Optional[torch.Tensor] = None,  # ()
 ) -> ProjectedGaussians:
+    """Project one view's SoA Gaussians, the world first rescaled by 1 /
+    near where `near` is given (the render's scale invariance): the kernel
+    on CUDA tensors that need no gradient, else the plain version."""
+    colour = soa.harmonics if soa.harmonics is not None else soa.colors
+    if project_bin_kernel.takes(*soa_planes(soa), colour, extrinsics, intrinsics, near):
+        if soa.colors is not None and soa.colors.shape[0] > project_bin_kernel.MAX_COLOURS:
+            raise ValueError(f"at most {project_bin_kernel.MAX_COLOURS} colour channels, got {soa.colors.shape[0]}")
+        rows, valid = project_bin_kernel.project(
+            extrinsics, intrinsics, near, soa_planes(soa), image_shape, harmonics=soa.harmonics
+        )
+        rows = rows[:, 0]
+        return ProjectedGaussians(
+            *rows[:8],
+            color=rows[8:] if soa.harmonics is not None else soa.colors.to(torch.float32),
+            opacity=soa.opacity,
+            valid=valid[0],
+        )
+    if near is not None:
+        extrinsics, soa = rescaled(extrinsics, soa, near)
+    return project_gaussians_soa_plain(extrinsics, intrinsics, image_shape, soa)
+
+
+def rescaled(extrinsics: torch.Tensor, soa: GaussiansSoA, near: torch.Tensor) -> tuple[torch.Tensor, GaussiansSoA]:
+    """The camera and the scene with the world scaled by 1 / near."""
+    scale = 1.0 / near
+    extrinsics = extrinsics.clone()
+    extrinsics[:3, 3] = extrinsics[:3, 3] * scale
+    return extrinsics, soa._replace(
+        mean_x=soa.mean_x * scale,
+        mean_y=soa.mean_y * scale,
+        mean_z=soa.mean_z * scale,
+        cov=soa.cov * scale**2,
+    )
+
+
+def project_gaussians_soa_plain(
+    extrinsics: torch.Tensor,  # (4, 4) camera-to-world
+    intrinsics: torch.Tensor,  # (3, 3) normalized
+    image_shape: tuple[int, int],
+    soa: GaussiansSoA,
+) -> ProjectedGaussians:
+    """The projection in plain PyTorch, differentiable."""
     h, w = image_shape
     dtype = soa.mean_x.dtype
 

@@ -69,19 +69,9 @@ def project_and_bin(
 ) -> tuple[ProjectedGaussians, TileLists]:
     """One view's projected Gaussians and tile lists: the compositor's inputs."""
     with tracing.span("render.project"):
-        if scale_invariant:
-            # Rescale the world by 1/near so the 0.2 near clip in the projector
-            # never bites real geometry.
-            scale = 1.0 / near
-            extrinsics = extrinsics.clone()
-            extrinsics[:3, 3] = extrinsics[:3, 3] * scale
-            soa = soa._replace(
-                mean_x=soa.mean_x * scale,
-                mean_y=soa.mean_y * scale,
-                mean_z=soa.mean_z * scale,
-                cov=soa.cov * scale**2,
-            )
-        projected = project_gaussians_soa(extrinsics, intrinsics, image_shape, soa)
+        # Rescale the world by 1/near so the 0.2 near clip in the projector
+        # never bites real geometry.
+        projected = project_gaussians_soa(extrinsics, intrinsics, image_shape, soa, near if scale_invariant else None)
     with tracing.span("render.bin"):
         tiles = bin_gaussians(
             projected,

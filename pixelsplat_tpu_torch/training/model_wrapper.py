@@ -40,8 +40,8 @@ from ..model.decoder.decoder_splatting import DecoderSplatting, DecoderSplatting
 from ..model.encoder.data_shim import get_data_shim
 from ..model.encoder.encoder_epipolar import EncoderEpipolar, EncoderEpipolarCfg
 from ..model.types import Gaussians
-from ..ops.rasterizer.adaptive import choose_settings
-from ..ops.rasterizer.projection import GaussiansSoA
+from ..ops.rasterizer.adaptive import choose_settings_planes
+from ..ops.rasterizer.projection import GaussiansSoA, aos_planes, soa_planes
 from ..ops.rasterizer.render import RenderSettings
 from ..parallel.distributed import is_rank_zero
 from ..parallel.mesh import all_reduce_mean_, broadcast_
@@ -388,33 +388,15 @@ class ModelWrapper:
         """Occupancy-adaptive render settings for batch element 0's views
         (three reads back from the device per scene, `choose_settings`)."""
         if isinstance(gaussians, GaussiansSoA):
-            means = torch.stack(
-                [gaussians.mean_x[0], gaussians.mean_y[0], gaussians.mean_z[0]], dim=-1
-            )
-            c = gaussians.cov[0]
-            covs = torch.stack(
-                [
-                    torch.stack([c[0], c[1], c[2]], -1),
-                    torch.stack([c[1], c[3], c[4]], -1),
-                    torch.stack([c[2], c[4], c[5]], -1),
-                ],
-                dim=-2,
-            )
-            opacities = gaussians.opacity[0]
+            planes = soa_planes(GaussiansSoA(*(None if x is None else x[0] for x in gaussians)))
         else:
-            means = gaussians.means[0]
-            covs = gaussians.covariances[0]
-            opacities = gaussians.opacities[0]
-        v = extrinsics.shape[1]
-        g = means.shape[0]
+            planes = aos_planes(gaussians.means[0], gaussians.covariances[0], gaussians.opacities[0])
         with torch.no_grad():
-            return choose_settings(
+            return choose_settings_planes(
                 extrinsics[0].to(self.device),
                 intrinsics[0].to(self.device),
                 near[0].to(self.device),
-                means[None].expand(v, g, 3),
-                covs[None].expand(v, g, 3, 3),
-                opacities[None].expand(v, g),
+                planes,
                 image_shape,
                 settings=self.decoder.cfg.render,
             )

@@ -280,7 +280,7 @@ def test_kernel_names_are_the_cu_files_only():
     from pixelsplat_tpu_torch import kernel_build
 
     assert kernel_build.kernel_names() == [
-        "composite_bwd", "composite_fwd", "composite_fwd_ablation", "copy_rows", "smoke_scale",
+        "composite_bwd", "composite_fwd", "composite_fwd_ablation", "copy_rows", "project_bin", "smoke_scale",
     ]
 
 
