@@ -248,6 +248,13 @@ occupancy kernel against `count_big` and `tile_occupancy`: every integer
 equal; one scene's launches (4 projections, 3 binnings, 1 occupancy
 count); then each stage's ms against its plain version and its bound.
 
+Then conv7 (`scripts/bench_conv7.py`): the refinement's two 7x7
+convolutions of the `re10k` and `re10k_3_view` scenes (2 and 3 views at
+256x256, 128 -> 256 -> 128 channels) through K9, each within twice cuDNN
+float32's relative RMS error against float64; K9's ms beside its bound (165
+TFLOP/s), its plain twin and cuDNN float32's default and best algorithms,
+K9 faster than the best; one scene's launches (2).
+
 Every kernel's launch count is set to 0 just before each path is driven
 and read just after it. The run ends with the card line, a JSON record of
 the kernels and {"ok": true, "device": {...}}.
@@ -1385,6 +1392,34 @@ def project_bin_phase(torch) -> dict:
     return record
 
 
+def conv7_phase(torch) -> dict:
+    """`scripts/bench_conv7.py` on both evaluation scenes' refinements: K9
+    within twice cuDNN float32's error against float64 and faster than
+    cuDNN's best float32 algorithm; then one scene's launches (2)."""
+    from pixelsplat_tpu_torch.scripts import bench_conv7
+    from pixelsplat_tpu_torch.scripts.eval_scene import make_eval_scene
+    from pixelsplat_tpu_torch.utils import tracing
+
+    scenes = {name: bench_conv7.scene(name, rounds=5) for name in bench_conv7.SCENES}
+    for name, r in scenes.items():
+        for label, v in r["launches"].items():
+            if not v["errors"]["k9"] <= 2 * v["errors"]["cudnn_f32"]:
+                fail(f"conv7 {name} {label}: relative RMS error {v['errors']['k9']:.3g} against float64, above twice "
+                     f"cuDNN float32's {v['errors']['cudnn_f32']:.3g}")
+        if not r["scene"]["ms"] < r["scene"]["library_best_ms"]:
+            fail(f"conv7 {name}: {r['scene']['ms']:.3f} ms, not faster than cuDNN's best float32 "
+                 f"{r['scene']['library_best_ms']:.3f} ms")
+    scene = make_eval_scene("cuda", seed=SEED)
+    scene.run(SEED)
+    tracing.reset()
+    scene.run(SEED)
+    launches = tracing.counter("conv7_launches")
+    if launches != 2:
+        fail(f"one re10k scene launched conv7 {launches} times, expected 2")
+    phase("conv7", f"one re10k scene: conv7 launched {launches} times")
+    return dict(scenes=scenes, scene_launches=launches)
+
+
 def tools_phase(torch, kernels, first_view):
     """The kernel tools' path (the segment-sum bench's checks and the stage
     ablation on `first_view`'s lists), then each tool kernel against its
@@ -1643,9 +1678,12 @@ def bf16_phase(torch, kernels, seed) -> dict:
             handle.remove()
     torch.cuda.synchronize()
     launches = launch_counts(kernels)
-    want_dtypes = {(n, c): getattr(torch, n) for n in policies for c in ("refine1", "refine2")}
-    if seen != want_dtypes:
-        fail(f"bf16: refinement outputs {seen}, expected {want_dtypes}")
+    # The f32 policy runs the refinement as K9 (two launches an encode, two
+    # encodes), which calls neither module; the bf16 policy calls both.
+    want_dtypes = {("bfloat16", c): torch.bfloat16 for c in ("refine1", "refine2")}
+    if seen != want_dtypes or tracing.counter("conv7_launches") != 4:
+        fail(f"bf16: refinement outputs {seen}, expected {want_dtypes}; conv7 launched "
+             f"{tracing.counter('conv7_launches')} times, expected 4 (the f32 policy's)")
     if launches["composite_fwd"] != 2 * TARGET_VIEWS or any(n for k, n in launches.items() if k != "composite_fwd"):
         fail(f"bf16: launches {launches}, expected composite_fwd once per target view per policy")
     g32, g16 = aos["float32"], aos["bfloat16"]
@@ -3018,8 +3056,8 @@ def main() -> None:
         "composite_fwd_ablation": "k1_ablation_launches",
         "smoke_scale": "smoke_scale_launches",
     }
-    if set(built) != set(kernels) | {"project_bin"}:
-        fail(f"built {sorted(built)}, expected the kernels {sorted(kernels)} and project_bin")
+    if set(built) != set(kernels) | {"project_bin", "conv7"}:
+        fail(f"built {sorted(built)}, expected the kernels {sorted(kernels)}, project_bin and conv7")
     for name, (path, log) in built.items():
         regs = [line.strip() for line in log.splitlines() if "registers" in line]
         phase("build", f"{name} -> {path.relative_to(ROOT)} {regs[0] if regs else ''}")
@@ -3041,6 +3079,9 @@ def main() -> None:
 
     # projection, binning and the probe's count against their plain versions
     prep = project_bin_phase(torch)
+
+    # the refinement's two 7x7 convolutions against float64 and cuDNN
+    conv7 = conv7_phase(torch)
 
     # 5. the evaluation protocol through the CLI's entry point
     protocol = eval_protocol_phase(torch, kernels)
@@ -3177,6 +3218,19 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": None,
             "ms_by_model": {m: r["times"][stage]["ms"] for m, r in prep["models"].items()},
         })
+    c7 = conv7["scenes"]
+    record["kernels"].append({
+        "name": "conv7", "route": "cuda", "source": "pixelsplat_tpu_torch/csrc/conv7.cu",
+        "replaces": "no Pallas kernel: pixelsplat_tpu/model/encoder/epipolar/epipolar_transformer.py "
+                    "upscale_refinement (XLA convolutions)",
+        "launches": conv7["scene_launches"], "launches_by_path": {"re10k scene": conv7["scene_launches"]},
+        **{k: c7[RE10K]["scene"][k] for k in ("ms", "bound_ms", "plain_ms", "library_ms", "library_best_ms")},
+        "bound_by": "operations (3xTF32, 165 TFLOP/s)",
+        "max_rel_rms_err": max(v["errors"]["k9"] for r in c7.values() for v in r["launches"].values()),
+        "by_scene": {name: {**r["scene"], "launches": {k: {m: v[m] for m in ("ms", "library_ms", "library_best_ms")}
+                                                       for k, v in r["launches"].items()}}
+                     for name, r in c7.items()},
+    })
     for k in record["kernels"]:
         if k["launches"] == 0:
             fail(f"{k['name']} was launched no time on any path")

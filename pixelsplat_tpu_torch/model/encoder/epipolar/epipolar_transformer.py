@@ -6,10 +6,11 @@ to the kv features, a cross-attention transformer whose feed-forward is an
 image self-attention block, and a transposed-conv upscale with a conv
 refinement. Feature maps are channels-last at this module's boundary and
 between its steps, as in the JAX package, so each reshape reads as there;
-only the convolutions see channels-first views. With a compute `dtype`
-(`model/precision.py`) the convolutions, the depth encoding's projection
-and the transformer run in it, as in the JAX module; the epipolar samples
-come out f32.
+only the downscaler and upscaler see channels-first views (the
+refinement's two 7x7 convolutions run channels-last, `ops/conv7_kernel.py`).
+With a compute `dtype` (`model/precision.py`) the convolutions, the depth
+encoding's projection and the transformer run in it, as in the JAX module;
+the epipolar samples come out f32.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from torch import nn
 
 from ....geometry.epipolar_lines import get_depth
+from ....ops import conv7_kernel
 from ....utils import tracing
 from ... import precision
 from ...encodings import PositionalEncoding
@@ -43,12 +45,14 @@ class EpipolarTransformerCfg:
 
 
 def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Apply a channels-first convolution to a channels-last stack.
+    """Apply a channels-first convolution to a channels-last stack: the
+    downscaler and the upscaler.
 
     The convolution is handed a contiguous channels-first copy: for a
-    channels-last float32 view cuDNN falls back to a generic engine that ran
-    the two 7x7 refinement convolutions 2.3x slower than its channels-first
-    implicit GEMM (84 against 37 ms at full width on an H100; PERF.md).
+    channels-last float32 view cuDNN falls back to a generic engine, which
+    ran the 7x7 refinement convolutions 2.3x slower than its channels-first
+    implicit GEMM on an H100 (PERF.md). The refinement no longer comes here:
+    `ops/conv7_kernel.py::refine` runs it channels-last (K9 on the card).
     """
     return conv(x.permute(0, 3, 1, 2).contiguous()).permute(0, 2, 3, 1)
 
@@ -146,7 +150,7 @@ class EpipolarTransformer(nn.Module):
         if cfg.downscale:
             with tracing.span("encoder.refine"):
                 x = conv_nhwc(self.upscaler, features.reshape(b * v, h, w, self.d_in))
-                x = x + conv_nhwc(self.upscale_refinement, x)
+                x = conv7_kernel.refine(x, self.upscale_refinement[0], self.upscale_refinement[2])
                 features = x.reshape(b, v, h_full, w_full, self.d_in)
 
         return features, sampling

@@ -191,6 +191,7 @@ def test_compositor_wrappers_take_cpu_or_cuda_only(which):
 PRODUCTION_SLICE_SOURCES = [
     "csrc/composite_fwd_ablation.cu",
     "csrc/composite_fwd_body.cuh",
+    "csrc/conv7.cu",
     "csrc/copy_rows.cu",
     "csrc/smoke_scale.cu",
     "geometry/epipolar_lines.py",
@@ -199,9 +200,11 @@ PRODUCTION_SLICE_SOURCES = [
     "model/encoder/epipolar/epipolar_transformer.py",
     "model/encoder/epipolar/image_self_attention.py",
     "model/transformer/transformer.py",
+    "ops/conv7_kernel.py",
     "ops/grid_sample.py",
     "ops/kernel_tools.py",
     "ops/rasterizer/composite_ablation.py",
+    "scripts/bench_conv7.py",
     "scripts/bench_kernel_ablation.py",
     "scripts/bench_segment_sum.py",
     "scripts/check_alpha_threshold.py",
@@ -280,7 +283,7 @@ def test_kernel_names_are_the_cu_files_only():
     from pixelsplat_tpu_torch import kernel_build
 
     assert kernel_build.kernel_names() == [
-        "composite_bwd", "composite_fwd", "composite_fwd_ablation", "copy_rows", "project_bin", "smoke_scale",
+        "composite_bwd", "composite_fwd", "composite_fwd_ablation", "conv7", "copy_rows", "project_bin", "smoke_scale",
     ]
 
 
