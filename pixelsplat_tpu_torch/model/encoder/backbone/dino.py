@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ....utils import tracing
+from ....utils.device_constants import on_device
 from ... import precision
 from .resnet import BackboneResnet, BackboneResnetCfg
 
@@ -81,12 +81,10 @@ def resize_pos_embed(grid: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor
     _, h0, w0, _ = grid.shape
     h, w = shape
     if h != h0:
-        with tracing.sync_point("upload.pos_embed_resize"):
-            m = torch.as_tensor(_keys_cubic_resize_matrix(h0, h), device=grid.device)
+        m = on_device("pos_embed_resize", _keys_cubic_resize_matrix, h0, h, device=grid.device)
         grid = torch.einsum("bhwc,hH->bHwc", grid, m)
     if w != w0:
-        with tracing.sync_point("upload.pos_embed_resize"):
-            m = torch.as_tensor(_keys_cubic_resize_matrix(w0, w), device=grid.device)
+        m = on_device("pos_embed_resize", _keys_cubic_resize_matrix, w0, w, device=grid.device)
         grid = torch.einsum("bhwc,wW->bhWc", grid, m)
     return grid
 

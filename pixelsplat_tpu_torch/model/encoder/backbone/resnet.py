@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ....utils import tracing
+from ....utils.device_constants import on_device
 from ... import precision
 
 RESNET_SPECS: dict[str, tuple[str, tuple[int, ...]]] = {
@@ -179,13 +179,9 @@ def _bilinear_resize(x: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
     h, w = x.shape[-2:]
     h_out, w_out = shape
     if h != h_out:
-        with tracing.sync_point("upload.resize_matrix"):
-            mh = torch.as_tensor(_resize_matrix(h, h_out), device=x.device, dtype=x.dtype)
-        x = mh @ x
+        x = on_device("resize_matrix", _resize_matrix, h, h_out, device=x.device, dtype=x.dtype) @ x
     if w != w_out:
-        with tracing.sync_point("upload.resize_matrix"):
-            mw = torch.as_tensor(_resize_matrix(w, w_out), device=x.device, dtype=x.dtype)
-        x = x @ mw.T
+        x = x @ on_device("resize_matrix", _resize_matrix, w, w_out, device=x.device, dtype=x.dtype).T
     return x
 
 

@@ -17,7 +17,7 @@ import torch
 
 from ....geometry.projection import get_world_rays
 from ....ops.sh import apply_sh_rotation, full_sh_rotation_matrix
-from ....utils import tracing
+from ....utils.device_constants import on_device
 from .gaussians import build_world_covariance
 
 
@@ -39,15 +39,28 @@ class AdaptedGaussians(NamedTuple):
     opacities: torch.Tensor  # (...)
 
 
+def sh_mask(sh_degree: int) -> torch.Tensor:
+    """The per-degree damping of the SH coefficients, (d_sh,) on the CPU."""
+    mask = torch.ones((sh_degree + 1) ** 2)
+    for degree in range(1, sh_degree + 1):
+        mask[degree**2 : (degree + 1) ** 2] = 0.1 * 0.25**degree
+    return mask
+
+
+def _pixel_size(h: int, w: int) -> list:
+    return [1.0 / w, 1.0 / h]
+
+
+def pixel_size(image_shape: tuple[int, int], device, dtype: torch.dtype) -> torch.Tensor:
+    """(1 / w, 1 / h) of an image of `image_shape` (h, w), kept on `device`."""
+    return on_device("pixel_size", _pixel_size, *image_shape, device=device, dtype=dtype)
+
+
 class GaussianAdapter:
     """Stateless (no learnable parameters)."""
 
     def __init__(self, cfg: GaussianAdapterCfg):
         self.cfg = cfg
-        mask = torch.ones(self.d_sh)
-        for degree in range(1, cfg.sh_degree + 1):
-            mask[degree**2 : (degree + 1) ** 2] = 0.1 * 0.25**degree
-        self.sh_mask = mask
 
     @property
     def d_sh(self) -> int:
@@ -74,10 +87,7 @@ class GaussianAdapter:
         scales = cfg.gaussian_scale_min + (
             cfg.gaussian_scale_max - cfg.gaussian_scale_min
         ) * torch.sigmoid(scales)
-        h, w = image_shape
-        with tracing.sync_point("upload.pixel_size"):
-            pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=scales.dtype, device=scales.device)
-        multiplier = self.get_scale_multiplier(intrinsics, pixel_size)
+        multiplier = self.get_scale_multiplier(intrinsics, pixel_size(image_shape, scales.device, scales.dtype))
         scales = scales * depths[..., None] * multiplier[..., None]
 
         rotations = rotations / (torch.linalg.vector_norm(rotations, dim=-1, keepdim=True) + eps)
@@ -87,9 +97,7 @@ class GaussianAdapter:
         covariances = build_world_covariance(scales, rotations, c2w_rotations)
 
         sh_m = full_sh_rotation_matrix(c2w_rotations, cfg.sh_degree)
-        with tracing.sync_point("upload.sh_mask"):
-            sh_mask = self.sh_mask.to(sh_m.device)
-        sh_m = sh_m * sh_mask  # rotate(mask * sh)
+        sh_m = sh_m * on_device("sh_mask", sh_mask, cfg.sh_degree, device=sh_m.device)  # rotate(mask * sh)
         harmonics = apply_sh_rotation(sh, sh_m[..., None, :, :])
 
         origins, directions = get_world_rays(coordinates, extrinsics, intrinsics)

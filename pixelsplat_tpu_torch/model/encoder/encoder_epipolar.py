@@ -26,14 +26,16 @@ from torch import nn
 from ...geometry.projection import sample_image_grid
 from ...ops.rasterizer.projection import GaussiansSoA
 from ...utils import tracing
+from ...utils.distributions import uniforms
 from ...utils.shape_checks import check_context
 from .. import precision
 from ..types import Gaussians
 from .backbone.dino import BackboneDino, BackboneDinoCfg
 from .backbone.resnet import BackboneResnet, BackboneResnetCfg
-from .common.gaussian_adapter import GaussianAdapter, GaussianAdapterCfg
+from .common.gaussian_adapter import GaussianAdapter, GaussianAdapterCfg, pixel_size
 from .epipolar.depth_predictor_monocular import DepthPredictorMonocular
 from .epipolar.epipolar_transformer import EpipolarTransformer, EpipolarTransformerCfg
+from .graphs import EncoderGraphs, Stage, run_eagerly
 
 
 @dataclass(frozen=True)
@@ -98,13 +100,18 @@ class EncoderEpipolar(nn.Module):
         )
         if cfg.predict_opacity:
             self.to_opacity = nn.Sequential(nn.ReLU(), nn.Linear(cfg.d_feature, 1))
+        self._graphs = EncoderGraphs()
+        self._weight_slots: Optional[list] = None
+
+    def opacity_exponent(self, global_step: int) -> float:
+        """The warm-up-scheduled exponent of `map_pdf_to_opacity`."""
+        cfg = self.cfg.opacity_mapping
+        frac = min(global_step / cfg.warm_up, 1.0)
+        return 2.0 ** (cfg.initial + frac * (cfg.final - cfg.initial))
 
     def map_pdf_to_opacity(self, pdf: torch.Tensor, global_step: int) -> torch.Tensor:
         """Warm-up-scheduled exponent mapping."""
-        cfg = self.cfg.opacity_mapping
-        frac = min(global_step / cfg.warm_up, 1.0)
-        x = cfg.initial + frac * (cfg.final - cfg.initial)
-        exponent = 2.0**x
+        exponent = self.opacity_exponent(global_step)
         return 0.5 * (1.0 - (1.0 - pdf) ** exponent + pdf ** (1.0 / exponent))
 
     @contextmanager
@@ -152,46 +159,112 @@ class EncoderEpipolar(nn.Module):
         sample-shared (b, 3, d_sh, v*srf, 1, h*w); otherwise as AoS
         `Gaussians`. `visualization_dump`, when given, receives the depths,
         scales, rotations and the epipolar sampling.
+
+        On a CUDA device without autograd, the visualization dump or
+        `capture_intermediates`, the stages run as CUDA graphs
+        (`graphs.py`), captured on the first call of each signature and
+        replayed after; the depth uniforms and the view order are then
+        drawn before the replay, by the same calls in the same order.
         """
         check_context(context)
         cfg = self.cfg
         image = context["image"]
         b, v, _, h, w = image.shape
+        gpp = 1 if deterministic else cfg.gaussians_per_pixel
+        if cfg.use_epipolar_transformer and view_order is None and v > 2 and not deterministic:
+            view_order = torch.randperm(v - 1, generator=generator, device=image.device)
 
-        with tracing.span("encoder.backbone"):
-            features = self.backbone(image)  # (b, v, h, w, c)
-            features = self.backbone_projection(features)
-
-        sampling = None
-        if cfg.use_epipolar_transformer:
-            if view_order is None and v > 2 and not deterministic:
-                view_order = torch.randperm(v - 1, generator=generator, device=features.device)
-            features, sampling = self.epipolar_transformer(
-                features, context["extrinsics"], context["intrinsics"], context["near"], context["far"],
-                view_order=view_order,
+        inputs = {name: context[name] for name in ("image", "extrinsics", "intrinsics", "near", "far")}
+        inputs["u"] = None if deterministic else u
+        reads_order = cfg.use_epipolar_transformer and v > 2 and view_order is not None
+        inputs["view_order"] = view_order if reads_order else None
+        stages = self._stages(global_step, deterministic, pack_soa, generator, visualization_dump)
+        if self._graphed(image, u, visualization_dump):
+            if u is None and not deterministic:
+                inputs["u"] = uniforms((b, v, h * w, cfg.num_surfaces, gpp), torch.float32, image.device, generator)
+            if reads_order:
+                inputs["view_order"] = view_order.to(image.device)
+            key = (
+                pack_soa, deterministic, self.opacity_exponent(global_step), self.dtype,
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                tuple(None if t is None else (n, t.shape, t.stride(), t.dtype, t.device) for n, t in inputs.items()),
             )
+            gaussians = self._graphs.run(key, stages, inputs, self._weight_storage())
+        else:
+            gaussians = run_eagerly(stages, inputs)
+        tracing.count("gaussians", b * v * h * w * cfg.num_surfaces * gpp)
+        return gaussians
 
-        with tracing.span("encoder.heads"):
-            return self._gaussians(
-                features, context, global_step, deterministic, pack_soa, u, generator, sampling, visualization_dump
-            )
+    def _graphed(self, image: torch.Tensor, u: Optional[torch.Tensor], visualization_dump: Optional[dict]) -> bool:
+        """Whether this call replays graphs: only where nothing outside the
+        returned Gaussians reads the stages (autograd, the visualization
+        dump, `capture_intermediates`, a caller's own stream capture) and
+        the inputs would run on one CUDA device eagerly too."""
+        return (
+            image.is_cuda
+            and not torch.is_grad_enabled()
+            and visualization_dump is None
+            and self.depth_predictor.capture is None
+            and not torch.is_autocast_enabled()
+            and not torch.cuda.is_current_stream_capturing()
+            and (u is None or u.device == image.device)
+        )
 
-    def _gaussians(self, features, context, global_step, deterministic, pack_soa, u, generator, sampling,
-                   visualization_dump):
-        """The heads on the transformer's features: the high-resolution
-        skip, the depth predictor, the Gaussian head and adapter, and the
-        packing `forward` describes."""
+    def _stages(self, global_step, deterministic, pack_soa, generator, visualization_dump) -> list[Stage]:
+        """The encode as its four stages, on the inputs `forward` names:
+        image, extrinsics, intrinsics, near, far, u and view_order."""
+        cameras = ("extrinsics", "intrinsics", "near", "far")
+
+        def backbone(image):
+            return self.backbone_projection(self.backbone(image))  # (b, v, h, w, d_feature)
+
+        def heads(features, image, extrinsics, intrinsics, near, far, u):
+            return self._gaussians(features, image, extrinsics, intrinsics, near, far, u, global_step, deterministic,
+                                   pack_soa, generator, visualization_dump)
+
+        stages = [Stage("encoder.backbone", backbone, ("image",), "features")]
+        if self.cfg.use_epipolar_transformer:
+            transformer = self.epipolar_transformer
+
+            def attend(*args):
+                low, sampling = transformer.attend(*args)
+                if visualization_dump is not None:
+                    visualization_dump["sampling"] = sampling
+                return low
+
+            attended = "low" if transformer.cfg.downscale else "features"
+            stages.append(Stage("encoder.epipolar", attend, ("features", *cameras, "view_order"), attended))
+            if transformer.cfg.downscale:
+                stages.append(Stage("encoder.refine", transformer.refine, ("low",), "features"))
+        stages.append(Stage("encoder.heads", heads, ("features", "image", *cameras, "u"), "gaussians"))
+        return stages
+
+    def _weight_storage(self) -> tuple:
+        """Where each parameter and buffer lives now: a replaced tensor or
+        storage changes it, an in-place update does not."""
+        if self._weight_slots is None:
+            self._weight_slots = [
+                (slots, name)
+                for module in self.modules()
+                for slots in (module._parameters, module._buffers)
+                for name, t in slots.items()
+                if t is not None
+            ]
+        return tuple(slots[name].data_ptr() for slots, name in self._weight_slots)
+
+    def _gaussians(self, features, image, extrinsics, intrinsics, near, far, u, global_step, deterministic, pack_soa,
+                   generator, visualization_dump):
+        """The stage `encoder.heads` on the transformer's features: the
+        high-resolution skip, the depth predictor, the Gaussian head and
+        adapter, and the packing `forward` describes."""
         cfg = self.cfg
-        image = context["image"]
         b, v, _, h, w = image.shape
         skip = self.high_resolution_skip(image.reshape(b * v, 3, h, w))
         features = features + skip.permute(0, 2, 3, 1).reshape(b, v, h, w, cfg.d_feature)
 
         features = features.reshape(b, v, h * w, cfg.d_feature).float()
         gpp = 1 if deterministic else cfg.gaussians_per_pixel
-        depths, densities = self.depth_predictor(
-            features, context["near"], context["far"], deterministic, gpp, u=u, generator=generator
-        )
+        depths, densities = self.depth_predictor(features, near, far, deterministic, gpp, u=u, generator=generator)
 
         adapter = self.gaussian_adapter
         raw = self.to_gaussians(features)
@@ -200,13 +273,11 @@ class EncoderEpipolar(nn.Module):
         xy_ray, _ = sample_image_grid((h, w), device=features.device, dtype=features.dtype)
         xy_ray = xy_ray.reshape(h * w, 1, 2)
         offset_xy = torch.sigmoid(raw[..., :2])
-        with tracing.sync_point("upload.pixel_size"):
-            pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=features.dtype, device=features.device)
-        xy_ray = xy_ray[None, None] + (offset_xy - 0.5) * pixel_size
+        xy_ray = xy_ray[None, None] + (offset_xy - 0.5) * pixel_size((h, w), features.device, features.dtype)
 
         gaussians = adapter(
-            context["extrinsics"][:, :, None, None, None],
-            context["intrinsics"][:, :, None, None, None],
+            extrinsics[:, :, None, None, None],
+            intrinsics[:, :, None, None, None],
             xy_ray[:, :, :, :, None],  # (b, v, r, srf, 1, 2)
             depths,
             self.map_pdf_to_opacity(densities, global_step) / cfg.gaussians_per_pixel,
@@ -220,10 +291,7 @@ class EncoderEpipolar(nn.Module):
             visualization_dump["depth"] = depths.reshape(b, v, h, w, srf, -1)
             visualization_dump["scales"] = gaussians.scales.reshape(b, -1, 3)
             visualization_dump["rotations"] = gaussians.rotations.reshape(b, -1, 4)
-            if sampling is not None:
-                visualization_dump["sampling"] = sampling
         g = v * (h * w) * srf * spp
-        tracing.count("gaussians", b * g)
         opacities = gaussians.opacities
         if cfg.predict_opacity:
             opacities = torch.sigmoid(self.to_opacity(features))[..., None] * opacities  # (b, v, r, 1, 1)

@@ -14,7 +14,7 @@ import torch
 from ....geometry.epipolar_lines import project_rays
 from ....geometry.projection import get_world_rays, sample_image_grid
 from ....ops.grid_sample import grid_sample_nhwc_flat
-from ....utils import tracing
+from ....utils.device_constants import on_device
 from ....utils.pairings import generate_heterogeneous_index
 
 
@@ -29,12 +29,13 @@ class EpipolarSampling(NamedTuple):
     directions: torch.Tensor  # (b, v, ray, 3)
 
 
+def _other_views(v: int):
+    return generate_heterogeneous_index(v)[1]
+
+
 def collect_other_views(target: torch.Tensor, v: int) -> torch.Tensor:
     """(b, v, ...) -> (b, v, v-1, ...) selecting, per view, all other views."""
-    _, index_other = generate_heterogeneous_index(v)
-    with tracing.sync_point("upload.view_index"):
-        index = torch.as_tensor(index_other, device=target.device)
-    return target[:, index]
+    return target[:, on_device("view_index", _other_views, v, device=target.device)]
 
 
 def sample_along_epipolar_lines(

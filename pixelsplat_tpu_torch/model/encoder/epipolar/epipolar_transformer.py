@@ -108,49 +108,58 @@ class EpipolarTransformer(nn.Module):
         far: torch.Tensor,  # (b, v)
         view_order: Optional[torch.Tensor] = None,  # (v-1,) int64 permutation, read when v > 2
     ) -> tuple[torch.Tensor, EpipolarSampling]:
+        with tracing.span("encoder.epipolar"):
+            low, sampling = self.attend(features, extrinsics, intrinsics, near, far, view_order)
+        if not self.cfg.downscale:
+            return low, sampling
+        with tracing.span("encoder.refine"):
+            return self.refine(low), sampling
+
+    def attend(self, features, extrinsics, intrinsics, near, far, view_order=None):
+        """The stage `encoder.epipolar`: downscale, sample along the epipolar
+        lines, attend. Returns the attended features at the downscaled size
+        and the sampling."""
         cfg = self.cfg
         b, v, h_full, w_full, c = features.shape
-
-        with tracing.span("encoder.epipolar"):
-            if cfg.downscale:
-                x = conv_nhwc(self.downscaler, features.reshape(b * v, h_full, w_full, c))
-                features = x.reshape(b, v, x.shape[1], x.shape[2], self.d_in)
-            h, w = features.shape[2], features.shape[3]
-
-            sampling = sample_along_epipolar_lines(features, extrinsics, intrinsics, near, far, cfg.num_samples)
-
-            if cfg.num_octaves > 0:
-                # Positionally encode each sample's depth (as relative disparity).
-                near_b, far_b = near[:, :, None, None, None], far[:, :, None, None, None]
-                depths = get_depth(
-                    sampling.origins[:, :, None, :, None],  # (b, v, 1, r, 1, 3)
-                    sampling.directions[:, :, None, :, None],
-                    sampling.xy_sample,  # (b, v, ov, r, s, 2)
-                    collect_other_views(extrinsics, v)[:, :, :, None, None],
-                    collect_other_views(intrinsics, v)[:, :, :, None, None],
-                )
-                depths = torch.minimum(torch.maximum(depths, near_b), far_b)
-                depths = depth_to_relative_disparity(depths, near_b, far_b)
-                kv = sampling.features + self.depth_encoding(depths[..., None])
-            else:
-                kv = sampling.features
-
-            if v > 2:
-                if view_order is None:
-                    view_order = torch.arange(v - 1, device=features.device)
-                kv = kv + self.view_embeddings(view_order.to(features.device))[None, None, :, None, None, :]
-
-            q = features.reshape(b * v * h * w, 1, self.d_in)
-            # kv: (b, v, ov, r, s, c) -> (b*v*r, s*ov, c), the reference's
-            # "(b v r) (s ov) c" token layout.
-            kv = kv.permute(0, 1, 3, 4, 2, 5).reshape(b * v * h * w, cfg.num_samples * (v - 1), self.d_in)
-            out = self.transformer(q, z=kv, b=b, v=v, h=h, w=w)
-            features = out.reshape(b, v, h, w, self.d_in)
-
         if cfg.downscale:
-            with tracing.span("encoder.refine"):
-                x = conv_nhwc(self.upscaler, features.reshape(b * v, h, w, self.d_in))
-                x = conv7_kernel.refine(x, self.upscale_refinement[0], self.upscale_refinement[2])
-                features = x.reshape(b, v, h_full, w_full, self.d_in)
+            x = conv_nhwc(self.downscaler, features.reshape(b * v, h_full, w_full, c))
+            features = x.reshape(b, v, x.shape[1], x.shape[2], self.d_in)
+        h, w = features.shape[2], features.shape[3]
 
-        return features, sampling
+        sampling = sample_along_epipolar_lines(features, extrinsics, intrinsics, near, far, cfg.num_samples)
+
+        if cfg.num_octaves > 0:
+            # Positionally encode each sample's depth (as relative disparity).
+            near_b, far_b = near[:, :, None, None, None], far[:, :, None, None, None]
+            depths = get_depth(
+                sampling.origins[:, :, None, :, None],  # (b, v, 1, r, 1, 3)
+                sampling.directions[:, :, None, :, None],
+                sampling.xy_sample,  # (b, v, ov, r, s, 2)
+                collect_other_views(extrinsics, v)[:, :, :, None, None],
+                collect_other_views(intrinsics, v)[:, :, :, None, None],
+            )
+            depths = torch.minimum(torch.maximum(depths, near_b), far_b)
+            depths = depth_to_relative_disparity(depths, near_b, far_b)
+            kv = sampling.features + self.depth_encoding(depths[..., None])
+        else:
+            kv = sampling.features
+
+        if v > 2:
+            if view_order is None:
+                view_order = torch.arange(v - 1, device=features.device)
+            kv = kv + self.view_embeddings(view_order.to(features.device))[None, None, :, None, None, :]
+
+        q = features.reshape(b * v * h * w, 1, self.d_in)
+        # kv: (b, v, ov, r, s, c) -> (b*v*r, s*ov, c), the reference's
+        # "(b v r) (s ov) c" token layout.
+        kv = kv.permute(0, 1, 3, 4, 2, 5).reshape(b * v * h * w, cfg.num_samples * (v - 1), self.d_in)
+        out = self.transformer(q, z=kv, b=b, v=v, h=h, w=w)
+        return out.reshape(b, v, h, w, self.d_in), sampling
+
+    def refine(self, features: torch.Tensor) -> torch.Tensor:
+        """The stage `encoder.refine`: upscale the attended features (b, v,
+        h, w, c) by `downscale` and refine them (K9 on the card)."""
+        b, v, h, w, _ = features.shape
+        x = conv_nhwc(self.upscaler, features.reshape(b * v, h, w, self.d_in))
+        x = conv7_kernel.refine(x, self.upscale_refinement[0], self.upscale_refinement[2])
+        return x.reshape(b, v, x.shape[1], x.shape[2], self.d_in)

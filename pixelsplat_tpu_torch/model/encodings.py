@@ -12,17 +12,20 @@ import math
 import torch
 from torch import nn
 
-from ..utils import tracing
+from ..utils.device_constants import on_device
 
 
 def positional_encoding(samples: torch.Tensor, num_octaves: int) -> torch.Tensor:
     """samples (..., d) -> (..., d * num_octaves * 2)."""
     octaves = torch.arange(num_octaves, dtype=samples.dtype, device=samples.device)
     frequencies = 2.0 * math.pi * 2.0**octaves  # (f,)
-    with tracing.sync_point("upload.phases"):
-        phases = torch.tensor([0.0, 0.5 * math.pi], dtype=samples.dtype, device=samples.device)  # (p,)
+    phases = on_device("phases", _phases, device=samples.device, dtype=samples.dtype)  # (p,)
     scaled = samples[..., None, None] * frequencies[:, None] + phases  # (..., d, f, p)
     return torch.sin(scaled).reshape(*samples.shape[:-1], -1)
+
+
+def _phases() -> list:
+    return [0.0, 0.5 * math.pi]
 
 
 def positional_encoding_d_out(dimensionality: int, num_octaves: int) -> int:

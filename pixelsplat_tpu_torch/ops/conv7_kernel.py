@@ -26,7 +26,8 @@ refinement, where a cached copy of both convolutions' weights raised an
 evaluation scene's peak by 11.8 MB on an H100, while the copy costs a few
 microseconds a launch; and optimizer updates are seen without a check.
 Each launch is inside a `kernel.conv7` span and counted by
-`conv7_launches`.
+`conv7_launches`; inside the encoder's CUDA graphs there is no span, and
+each replay counts the launches its graph holds (`model/encoder/graphs.py`).
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..utils import tracing
+from ..utils.device_constants import on_device
 
 MAX_DEGREE = 4
 
@@ -106,6 +106,10 @@ def _fixed_directions_and_pinv(degree: int) -> tuple[np.ndarray, np.ndarray]:
     return dirs, np.linalg.pinv(b_l)  # pinv: (2l+1, N)
 
 
+def _fixed_part(degree: int, i: int) -> np.ndarray:
+    return _fixed_directions_and_pinv(degree)[i]
+
+
 def sh_rotation_matrix(rotations: torch.Tensor, degree: int) -> torch.Tensor:
     """(..., 3, 3) rotations -> (..., 2l+1, 2l+1) degree-l SH rotations.
 
@@ -115,11 +119,8 @@ def sh_rotation_matrix(rotations: torch.Tensor, degree: int) -> torch.Tensor:
         return torch.ones(
             (*rotations.shape[:-2], 1, 1), dtype=rotations.dtype, device=rotations.device
         )
-    dirs, pinv = _fixed_directions_and_pinv(degree)
-    with tracing.sync_point("upload.sh_rotation"):
-        dirs = torch.as_tensor(dirs, dtype=rotations.dtype, device=rotations.device)
-    with tracing.sync_point("upload.sh_rotation"):
-        pinv = torch.as_tensor(pinv, dtype=rotations.dtype, device=rotations.device)
+    dirs = on_device("sh_rotation", _fixed_part, degree, 0, device=rotations.device, dtype=rotations.dtype)
+    pinv = on_device("sh_rotation", _fixed_part, degree, 1, device=rotations.device, dtype=rotations.dtype)
     rotated = dirs @ rotations.transpose(-1, -2)  # (..., N, 3)
     basis_rot = torch.stack(
         sh_basis_components(rotated[..., 0], rotated[..., 1], rotated[..., 2], degree)[

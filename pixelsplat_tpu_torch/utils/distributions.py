@@ -20,6 +20,12 @@ def onehot_gather(values: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return torch.gather(values, -1, index.long())
 
 
+def uniforms(shape: tuple, dtype: torch.dtype, device, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The uniforms that `sample_discrete_distribution` draws where it is
+    given none: one call of `torch.rand` on `generator`."""
+    return torch.rand(shape, generator=generator, dtype=dtype, device=device)
+
+
 def sample_discrete_distribution(
     pdf: torch.Tensor,  # (*batch, bucket)
     num_samples: int,
@@ -31,9 +37,7 @@ def sample_discrete_distribution(
     normalized = pdf / (_EPS + pdf.sum(dim=-1, keepdim=True))
     cdf = torch.cumsum(normalized, dim=-1)
     if u is None:
-        u = torch.rand(
-            (*batch, num_samples), generator=generator, dtype=pdf.dtype, device=pdf.device
-        )
+        u = uniforms((*batch, num_samples), pdf.dtype, pdf.device, generator)
     # index = #{j : cdf[j] <= u}, i.e. searchsorted(cdf, u, side="right").
     index = (cdf[..., :, None] <= u[..., None, :]).sum(dim=-2)
     index = torch.clamp(index, 0, bucket - 1)

@@ -26,6 +26,16 @@ of a device tensor (without a sync, resolved by `read`). `count_launch` is
 the launch counter of the port's hand-written kernels, which counts whether
 or not tracing is on.
 
+`count_always(name)` counts whether or not tracing is on too, and while it is
+on also under `<name>.traced`, so that a reader of a traced window can tell
+the window's share from the process's total.
+
+`held()` is for CUDA graph capture (`model/encoder/graphs.py`): within it
+the thread records no span, sync point or count (an event recorded into a
+graph has no time), and each launch count goes to the dict it yields, which
+the graph's replays hand back through `count_launches`. So a launch inside
+a replayed graph counts as it did eagerly.
+
 `read()` returns `{"spans": {name: {"calls", "host_ms", "device_ms"}},
 "counters": {name: number}}`, totals since the last `reset()`.
 
@@ -40,14 +50,16 @@ the rasterizer); `kernel.k1` and `kernel.k2` (each compositing launch);
 from __future__ import annotations
 
 import threading
+from contextlib import contextmanager
 from time import perf_counter
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
 _on = False
 _lock = threading.Lock()  # counters are added to from kernel-build threads too
+_thread = threading.local()  # `held`: the launch counts of a capture on this thread, else None
 
 
 def active() -> bool:
@@ -155,16 +167,20 @@ class _NoOp:
 _NOOP = _NoOp()
 
 
+def _held() -> Optional[dict]:
+    return getattr(_thread, "launches", None)
+
+
 def span(name: str):
     """A span named `name` while tracing is on, else a shared no-op."""
-    if not (_on or _autograd_profiler._is_profiler_enabled):
+    if not (_on or _autograd_profiler._is_profiler_enabled) or _held() is not None:
         return _NOOP
     return Span(name, _store.add_span, torch.cuda.is_initialized())
 
 
 def sync_point(name: str):
     """A span around a block in which the host waits for the device."""
-    if not (_on or _autograd_profiler._is_profiler_enabled):
+    if not (_on or _autograd_profiler._is_profiler_enabled) or _held() is not None:
         return _NOOP
     return _SyncPoint(name, _store.add_span, torch.cuda.is_initialized())
 
@@ -176,14 +192,14 @@ def _add(name: str, n: float) -> None:
 
 def count(name: str, n: float = 1) -> None:
     """Add a host number to counter `name` while tracing is on."""
-    if _on or _autograd_profiler._is_profiler_enabled:
+    if (_on or _autograd_profiler._is_profiler_enabled) and _held() is None:
         _add(name, n)
 
 
 def count_device(name: str, x: torch.Tensor) -> None:
     """Add the sum of device tensor `x` to counter `name` while tracing is
     on: queued on the device, read by `read`."""
-    if _on or _autograd_profiler._is_profiler_enabled:
+    if (_on or _autograd_profiler._is_profiler_enabled) and _held() is None:
         total = x.sum(dtype=torch.int64)
         previous = _store.device_counters.get(name)
         _store.device_counters[name] = total if previous is None else previous + total
@@ -191,8 +207,38 @@ def count_device(name: str, x: torch.Tensor) -> None:
 
 def count_launch(name: str) -> None:
     """One launch of a hand-written kernel, counted whether or not tracing
-    is on."""
-    _add(name, 1)
+    is on (inside `held`, into the capture's own counts)."""
+    launches = _held()
+    if launches is not None:
+        launches[name] = launches.get(name, 0) + 1
+    else:
+        _add(name, 1)
+
+
+def count_launches(launches: dict) -> None:
+    """Add a captured graph's launch counts (`held`), once a replay."""
+    for name, n in launches.items():
+        _add(name, n)
+
+
+def count_always(name: str, n: float = 1) -> None:
+    """Add `n` to counter `name` whether or not tracing is on; while it is
+    on, to `<name>.traced` as well."""
+    _add(name, n)
+    if _on or _autograd_profiler._is_profiler_enabled:
+        _add(f"{name}.traced", n)
+
+
+@contextmanager
+def held() -> Iterator[dict]:
+    """Within the block this thread records no span, sync point or count;
+    its launch counts go to the dict yielded."""
+    previous = _held()
+    _thread.launches = launches = {}
+    try:
+        yield launches
+    finally:
+        _thread.launches = previous
 
 
 def counter(name: str) -> float:

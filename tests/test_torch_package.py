@@ -199,6 +199,7 @@ PRODUCTION_SLICE_SOURCES = [
     "model/encoder/epipolar/epipolar_sampler.py",
     "model/encoder/epipolar/epipolar_transformer.py",
     "model/encoder/epipolar/image_self_attention.py",
+    "model/encoder/graphs.py",
     "model/transformer/transformer.py",
     "ops/conv7_kernel.py",
     "ops/grid_sample.py",
@@ -210,6 +211,7 @@ PRODUCTION_SLICE_SOURCES = [
     "scripts/check_alpha_threshold.py",
     "scripts/check_composite_bwd.py",
     "scripts/kernel_smoke.py",
+    "utils/device_constants.py",
     "utils/pairings.py",
 ]
 

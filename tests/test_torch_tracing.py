@@ -74,6 +74,31 @@ def test_launch_counters_count_with_tracing_off():
     assert tracing.counter("k1_launches") == 2 and tracing.counter("k2_launches") == 0
 
 
+def test_held_records_nothing_and_keeps_the_launches_for_replays():
+    tracing.enable(True)
+    with tracing.held() as launches:
+        with tracing.span("a"), tracing.sync_point("b"):
+            tracing.count("n", 2)
+            tracing.count_device("d", torch.ones(3, dtype=torch.int32))
+            tracing.count_launch("conv7_launches")
+            tracing.count_launch("conv7_launches")
+    assert launches == {"conv7_launches": 2}
+    assert tracing.read() == {"spans": {}, "counters": {}}
+    for _ in range(2):  # two replays of the captured graph
+        tracing.count_launches(launches)
+    with tracing.span("a"):
+        pass
+    assert tracing.read()["counters"] == {"conv7_launches": 4} and tracing.read()["spans"]["a"]["calls"] == 1
+
+
+def test_count_always_counts_the_traced_part_apart():
+    tracing.count_always("encoder_graph_scenes")
+    tracing.enable(True)
+    tracing.count_always("encoder_graph_scenes", 2)
+    tracing.enable(False)
+    assert tracing.read()["counters"] == {"encoder_graph_scenes": 3, "encoder_graph_scenes.traced": 2}
+
+
 def test_the_profiler_switches_tracing_on():
     assert not tracing.active()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
@@ -174,6 +199,27 @@ def test_one_scene_yields_each_span_and_the_same_image(tiny_scene):
     assert counters["big_capacity"] >= 256
 
 
+def test_a_warm_scene_uploads_nothing_in_the_encoder(tiny_scene, tmp_path):
+    """Once the encoder's constants are on the device, no `upload.*` sync
+    point opens inside an `encoder.*` span; the render's remain."""
+    scene, views = tiny_scene
+    scene()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        scene()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+              for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+              if e.get("cat") == "user_annotation" and e.get("ph") == "X"]
+    encoder = [(lo, hi) for name, lo, hi in events if name.startswith("encoder.")]
+    uploads = [(name, lo) for name, lo, _ in events if name.startswith("upload.")]
+    assert len(encoder) == 4 and any(name == "upload.background" for name, _ in uploads)
+    assert not [name for name, t in uploads if any(lo <= t <= hi for lo, hi in encoder)]
+    got = tracing.read()
+    calls = {name: s["calls"] for name, s in got["spans"].items()}
+    assert got["counters"]["host_syncs"] == calls["settings.read"] + sum(
+        n for name, n in calls.items() if name.startswith("upload."))
+
+
 def test_spans_share_the_profilers_clock(tiny_scene, tmp_path):
     """With tracing off, a profiler session still records the program's
     spans: as `user_annotation` events nested in an outer range."""
@@ -225,6 +271,7 @@ def _span(calls, device_ms, host_ms=0.0):
     ("bin_ms.eval", 10.0),  # (36 + 24) / 6 views
     ("composite_ms.eval", 5.0),
     ("host_syncs.eval", 63.0),
+    ("encode_graphed.eval", 50.0),  # 1 of the 2 traced scenes
 ])
 def test_metric_readers_on_a_hand_built_run(name, want):
     program = {
@@ -234,12 +281,20 @@ def test_metric_readers_on_a_hand_built_run(name, want):
             "settings.occupancy": _span(4, 2.0, host_ms=6.0), "settings.read": _span(6, 1.0, host_ms=4.0),
             "render.project": _span(6, 36.0), "render.bin": _span(6, 24.0), "render.composite": _span(6, 30.0),
         },
-        "counters": {"host_syncs": 126},
+        "counters": {"host_syncs": 126, "encoder_graph_scenes": 40, "encoder_graph_scenes.traced": 1},
     }
     read = _reader(name)
     assert read(_run(program)) == pytest.approx(want)
     assert read(_run(program, kind="train")) is None
     assert read(_run({"spans": {}, "counters": {}})) is None  # the program recorded nothing
+
+
+def test_encode_graphed_reads_nothing_without_the_counter():
+    read = _reader("encode_graphed.eval")
+    program = {"spans": {"encoder.backbone": _span(4, 40.0)}, "counters": {"host_syncs": 12}}
+    assert read(_run(program)) is None  # a program without graphs
+    program["counters"].update({"encoder_graph_scenes": 300, "encoder_graph_scenes.traced": 4})
+    assert read(_run(program)) == 100.0
 
 
 def test_metric_readers_read_the_program_tracer_after_a_profiled_window(tiny_scene):
