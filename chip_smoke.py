@@ -2167,9 +2167,9 @@ def visualization_phase(torch, kernels) -> dict:
         EncoderVisualizerEpipolar,
     )
     from pixelsplat_tpu_torch.ops.rasterizer import composite_kernel
-    from pixelsplat_tpu_torch.ops.rasterizer.adaptive import sufficient_settings
+    from pixelsplat_tpu_torch.ops.rasterizer.adaptive import probe, sufficient_settings
     from pixelsplat_tpu_torch.ops.rasterizer.composite import pack_columns
-    from pixelsplat_tpu_torch.ops.rasterizer.projection import pack_gaussians_soa
+    from pixelsplat_tpu_torch.ops.rasterizer.projection import aos_planes, pack_gaussians_soa
     from pixelsplat_tpu_torch.ops.rasterizer.render import orthographic_frustum, project_and_bin
     from pixelsplat_tpu_torch.scripts import test_splatter, visualize_epipolar_lines
     from pixelsplat_tpu_torch.scripts.eval_scene import card_line, cuda_ms, scene_batch
@@ -2294,8 +2294,9 @@ def visualization_phase(torch, kernels) -> dict:
                 jax_drop.append(int(tiles.overflow))
             camera = projection_cameras(gaussians.means)[0]
             e, k, n, _ = orthographic_frustum(camera.extrinsics, camera.width, camera.width, camera.near, camera.far)
-            proj_settings = sufficient_settings(e, k, n, gaussians.means, gaussians.covariances, gaussians.opacities,
-                                                (256, 256), settings=PROJECTION_SETTINGS, scale_invariant=False)
+            planes = aos_planes(gaussians.means, gaussians.covariances, gaussians.opacities)
+            occupancy = probe(e, k, n, planes, (256, 256), PROJECTION_SETTINGS, scale_invariant=False)
+            proj_settings = sufficient_settings(occupancy, PROJECTION_SETTINGS, gaussians.means.shape[1], (256, 256))
             cases["projection XY"] = (*project_and_bin(e[0], k[0], n[0], soa, image_shape=(256, 256),
                                                        scale_invariant=False, settings=proj_settings), proj_settings, 256)
         result["jax_settings_drop"] = jax_drop
@@ -2610,7 +2611,7 @@ def paper_phase(torch, kernels) -> dict:
     stages = [(module, name) for module in (generate_point_cloud_figure, generate_sampling_figure)
               for name in ("load_model", "load_scene", "encode_scene", "line_overlay_layers",
                            "composite_depth_layers", "save_image")]
-    stages += [(generate_point_cloud_figure, "sufficient_settings"), (generate_point_cloud_figure, "render_orthographic"),
+    stages += [(generate_point_cloud_figure, "probe"), (generate_point_cloud_figure, "render_orthographic"),
                (generate_point_cloud_figure, "export_ply"), (generate_sampling_figure, "density_volume")]
 
     def bin_view(p, settings):
@@ -3146,7 +3147,7 @@ def main() -> None:
     main_model = results[RE10K]  # the production model's inputs give the record's times
     copy_main, copy_transposed = tools["copy_rows"][:2]  # the 16-bit table, contiguous and transposed
     scale = tools["scale"]
-    layout_keys = ("route", "ms", "library_ms", "device_ms", "library_device_ms", "host_us", "host_us_old", "bound_ms")
+    layout_keys = ("route", "ms", "library_ms", "device_ms", "library_device_ms", "host_us", "bound_ms")
     record = {
         "kernels": [
             entry(
@@ -3204,7 +3205,6 @@ def main() -> None:
                 plain_ms=scale["plain_ms"], bound_ms=scale["bound_ms"], bound_by="bytes",
                 library_ms=scale["library_ms"], device_ms=scale["device_ms"],
                 library_device_ms=scale["library_device_ms"], host_us=scale["host_us"],
-                host_us_old=scale["host_us_old"],
             ),
         ]
     }

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's CUDA kernels with nvcc, load them with ctypes, and
+launch them.
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own
 into `build/kernels/lib<name>-<hash>.so` at the root of the checkout, for
@@ -6,7 +7,8 @@ Hopper (`sm_90a`). The file name carries a hash of the source, of the
 `csrc/` headers it includes and of the flags, so an edited source or header
 rebuilds and a built one loads at once. Nothing
 here runs at import time: a library is built on the first call that needs
-it.
+it. `declare` types a library's entry points and `launch` is the one path
+every wrapper calls them through.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 from .utils import tracing
 
@@ -122,3 +126,43 @@ def load(name: str, csrc: Path | None = None) -> ctypes.CDLL:
             path, _ = build(name, csrc)
             _loaded[key] = ctypes.CDLL(str(path))
         return _loaded[key]
+
+
+def declare(lib: ctypes.CDLL, signatures) -> ctypes.CDLL:
+    """`lib` with the entry points of `signatures`, `(symbol, argtypes)`
+    pairs, declared: each returns an int (a kernel's entry point the error
+    code of its launches), or the restype a third element gives."""
+    for symbol, argtypes, *restype in signatures:
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype[0] if restype else ctypes.c_int
+    return lib
+
+
+# Bound once, since the launch path reads them on every call (None where
+# PyTorch was built without CUDA, so no tensor can reach them).
+_cuda_get_device = getattr(torch._C, "_cuda_getDevice", None)
+_cuda_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_raw_stream(index: int) -> int:
+    """The raw handle of the current stream of CUDA device `index`, read
+    without building a `torch.cuda.Stream` (the call Triton's launcher
+    makes); equal to `torch.cuda.current_stream(index).cuda_stream`."""
+    return _cuda_raw_stream(index)
+
+
+def launch(name: str, entry, device: int, *args) -> None:
+    """Call a kernel's C entry point, `entry(*args, stream)`, on the current
+    stream of CUDA device index `device` (inside a CUDA graph capture, the
+    capturing stream), entering a device guard only when that is not the
+    current device, and raise if the entry point returns an error code.
+    It builds no `torch.cuda.Stream`; the entry point's types are declared
+    once, when its library is loaded (`declare`)."""
+    if device == _cuda_get_device():
+        err = entry(*args, _cuda_raw_stream(device))
+    else:
+        with torch.cuda.device(device):
+            err = entry(*args, _cuda_raw_stream(device))
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")

@@ -25,6 +25,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..kernel_build import declare
+
 SOURCE = Path(__file__).resolve().parent / "chunk_loader.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "native"
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
@@ -77,14 +79,15 @@ def _load() -> ctypes.CDLL:
             _error = str(exc)
             raise
         c_int, c_void, ptr = ctypes.c_int32, ctypes.c_void_p, ctypes.POINTER
-        lib.psz_open.restype, lib.psz_open.argtypes = c_void, [ctypes.c_char_p]
-        lib.psz_close.argtypes = [c_void]
-        lib.psz_num_examples.restype, lib.psz_num_examples.argtypes = c_int, [c_void]
-        lib.psz_num_frames.restype, lib.psz_num_frames.argtypes = c_int, [c_void, c_int]
-        lib.psz_key.restype, lib.psz_key.argtypes = c_int, [c_void, c_int, ctypes.c_char_p, c_int]
-        lib.psz_poses.restype, lib.psz_poses.argtypes = c_int, [c_void, c_int, ptr(ctypes.c_float)]
-        lib.psz_decode_frames.restype = c_int
-        lib.psz_decode_frames.argtypes = [c_void, c_int, ptr(c_int), c_int, c_int, c_int, ptr(ctypes.c_uint8), c_int]
+        declare(lib, (
+            ("psz_open", [ctypes.c_char_p], c_void),
+            ("psz_close", [c_void], None),
+            ("psz_num_examples", [c_void]),
+            ("psz_num_frames", [c_void, c_int]),
+            ("psz_key", [c_void, c_int, ctypes.c_char_p, c_int]),
+            ("psz_poses", [c_void, c_int, ptr(ctypes.c_float)]),
+            ("psz_decode_frames", [c_void, c_int, ptr(c_int), c_int, c_int, c_int, ptr(ctypes.c_uint8), c_int]),
+        ))
         _lib, _error = lib, None
         return lib
 

@@ -54,10 +54,7 @@ _I = ctypes.c_int
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = kernel_build.load("conv7")
-    lib.conv7.argtypes = [_P] * 6 + [_I] * 7 + [_P]
-    lib.conv7.restype = ctypes.c_int
-    return lib
+    return kernel_build.declare(kernel_build.load("conv7"), (("conv7", [_P] * 6 + [_I] * 7 + [_P]),))
 
 
 def pack_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -99,14 +96,12 @@ def launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, residual: 
     wp, b = pack_weight(weight), bias.detach().contiguous()
     out = torch.empty((n, h, w, c_out), dtype=torch.float32, device=x.device)
     z = torch.empty_like(out) if pre else None
-    with torch.cuda.device(x.device), tracing.span("kernel.conv7"):
-        err = _lib().conv7(
+    with tracing.span("kernel.conv7"):
+        kernel_build.launch(
+            "conv7", _lib().conv7, x.get_device(),
             x.data_ptr(), wp.data_ptr(), b.data_ptr(), None if residual is None else residual.data_ptr(),
             out.data_ptr(), None if z is None else z.data_ptr(), n, h, w, c_in, c_out, int(gelu), terms,
-            torch.cuda.current_stream().cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"conv7 launch failed: cudaError {err}")
     tracing.count_launch("conv7_launches")
     return out, z
 

@@ -8,10 +8,10 @@ On a CUDA tensor each launches its kernel (`csrc/smoke_scale.cu`,
 `csrc/copy_rows.cu`) or raises; on a CPU tensor it runs its plain version
 (`smoke_scale_plain`, `copy_rows_plain`). The tracer's counters
 `smoke_scale_launches` and `copy_rows_launches` count kernel launches.
-`copy_rows_route` picks the
-copy kernel's route from the input's layout. Every wrapper launches through
-`_launch`, whose per-call host work is the checks, one allocation and the
-ctypes call: both kernels are so short that a call's time is the host's.
+`copy_rows_route` picks the copy kernel's route from the input's layout.
+Every wrapper launches through `kernel_build.launch`, whose per-call host
+work is the checks, one allocation and the ctypes call: both kernels are
+so short that a call's time is the host's.
 
 The `segment_sum_*` functions are the four ways `scripts/
 bench_segment_sum.py` times the per-Gaussian gradient sum (rows (n, f) f32
@@ -28,6 +28,9 @@ import torch
 from .. import kernel_build
 from ..utils import tracing
 
+_P = ctypes.c_void_p
+_L = ctypes.c_longlong
+
 
 def _require_cuda_or_cpu(x: torch.Tensor, name: str) -> bool:
     """True for a CUDA tensor, False for a CPU one; anything else raises."""
@@ -36,35 +39,6 @@ def _require_cuda_or_cpu(x: torch.Tensor, name: str) -> bool:
     if x.is_cpu:
         return False
     raise ValueError(f"{name} runs on CUDA or CPU tensors, not {x.device}")
-
-
-# Bound once, since the launch path reads them on every call (None where
-# PyTorch was built without CUDA, so no tensor can reach them).
-_cuda_get_device = getattr(torch._C, "_cuda_getDevice", None)
-_cuda_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def current_raw_stream(index: int) -> int:
-    """The raw handle of the current stream of CUDA device `index`, read
-    without building a `torch.cuda.Stream` (the call Triton's launcher
-    makes); equal to `torch.cuda.current_stream(index).cuda_stream`."""
-    return _cuda_raw_stream(index)
-
-
-def _launch(name: str, entry, index: int, *args) -> None:
-    """The launch path the wrappers share: calls a kernel's C entry point
-    `entry(*args, stream)` on the current stream of CUDA device `index`,
-    entering a device guard only when that is not the current device, and
-    raises if the launch was refused (the entry point returns the launch's
-    error code). It builds no `torch.cuda.Stream` and the entry points'
-    ctypes types are bound once, when the library is loaded."""
-    if index == _cuda_get_device():
-        err = entry(*args, _cuda_raw_stream(index))
-    else:
-        with torch.cuda.device(index):
-            err = entry(*args, _cuda_raw_stream(index))
-    if err:
-        raise RuntimeError(f"{name} launch failed: error {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -77,10 +51,7 @@ def smoke_scale_plain(x: torch.Tensor) -> torch.Tensor:
 
 @functools.cache
 def _smoke_entry_point():
-    fn = kernel_build.load("smoke_scale").smoke_scale
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return kernel_build.declare(kernel_build.load("smoke_scale"), (("smoke_scale", [_P, _P, _L, _P]),)).smoke_scale
 
 
 def smoke_scale(x: torch.Tensor) -> torch.Tensor:
@@ -92,15 +63,7 @@ def smoke_scale(x: torch.Tensor) -> torch.Tensor:
     if x.dtype is not torch.float32 or not x.is_contiguous():
         raise ValueError(f"smoke_scale takes a contiguous float32 tensor, got {x.dtype}, strides {x.stride()}")
     y = torch.empty_like(x)
-    index = x.get_device()
-    if index == _cuda_get_device():
-        # `_launch`'s fast path written out: this call's time is all host
-        # work, and on an H100's host the helper's call was a measurable
-        # share of it.
-        if err := _smoke_entry_point()(x.data_ptr(), y.data_ptr(), x.numel(), _cuda_raw_stream(index)):
-            raise RuntimeError(f"smoke_scale launch failed: error {err}")
-    else:
-        _launch("smoke_scale", _smoke_entry_point(), index, x.data_ptr(), y.data_ptr(), x.numel())
+    kernel_build.launch("smoke_scale", _smoke_entry_point(), x.get_device(), x.data_ptr(), y.data_ptr(), x.numel())
     tracing.count_launch("smoke_scale_launches")
     return y
 
@@ -139,14 +102,10 @@ def copy_rows_route(
 
 @functools.cache
 def _copy_rows_library():
-    lib = kernel_build.load("copy_rows")
-    lib.copy_rows.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    )
-    lib.copy_rows.restype = ctypes.c_int
-    lib.segment_sum_atomic.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    lib.segment_sum_atomic.restype = ctypes.c_int
-    return lib
+    return kernel_build.declare(kernel_build.load("copy_rows"), (
+        ("copy_rows", [_P] * 2 + [_L] * 4 + [ctypes.c_int] * 2 + [_P]),
+        ("segment_sum_atomic", [_P] * 3 + [_L, ctypes.c_int, _P]),
+    ))
 
 
 def copy_rows(x: torch.Tensor) -> torch.Tensor:
@@ -166,7 +125,8 @@ def copy_rows(x: torch.Tensor) -> torch.Tensor:
     if out_ptr % 16:
         raise RuntimeError("copy_rows: the output is not 16-byte aligned")
     route = COPY_ROUTES.index(copy_rows_route(shape, strides, itemsize, in_ptr, out_ptr))
-    _launch("copy_rows", _copy_rows_library().copy_rows, x.get_device(), in_ptr, out_ptr, *shape, *strides, itemsize, route)
+    kernel_build.launch("copy_rows", _copy_rows_library().copy_rows, x.get_device(), in_ptr, out_ptr, *shape, *strides,
+                        itemsize, route)
     tracing.count_launch("copy_rows_launches")
     return out
 
@@ -213,6 +173,6 @@ def segment_sum_atomic(rows: torch.Tensor, ids: torch.Tensor, num_rows: int) -> 
         raise ValueError("segment_sum_atomic takes contiguous (n,) int32 ids on the rows' device")
     n, f = rows.shape
     out = torch.zeros((num_rows, f), dtype=torch.float32, device=rows.device)
-    _launch("segment_sum_atomic", _copy_rows_library().segment_sum_atomic, rows.get_device(),
-            rows.data_ptr(), ids.data_ptr(), out.data_ptr(), n, f)
+    kernel_build.launch("segment_sum_atomic", _copy_rows_library().segment_sum_atomic, rows.get_device(),
+                        rows.data_ptr(), ids.data_ptr(), out.data_ptr(), n, f)
     return out

@@ -26,7 +26,7 @@ import torch
 
 from ... import kernel_build
 from ...utils import tracing
-from .composite_kernel import CH_PAD, KERNEL_TILE, _check_lists, composite_core_plain
+from .composite_kernel import CH_PAD, FWD_ARGTYPES, KERNEL_TILE, _check_lists, composite_core_plain
 
 DROP_GATHER, DROP_POWER, DROP_EXP_POWER, DROP_TRANSMITTANCE, DROP_COLOURS = 1, 2, 4, 8, 16
 DROP_EVERYTHING = 31
@@ -47,10 +47,8 @@ VARIANTS = {
 @functools.cache
 def _entry_point():
     """`composite_fwd_ablation` of the built library, its C signature declared."""
-    fn = kernel_build.load("composite_fwd_ablation").composite_fwd_ablation
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    return fn
+    signature = ("composite_fwd_ablation", [ctypes.c_int] * 2 + FWD_ARGTYPES)
+    return kernel_build.declare(kernel_build.load("composite_fwd_ablation"), (signature,)).composite_fwd_ablation
 
 
 def composite_core_ablation(
@@ -81,14 +79,12 @@ def composite_core_ablation(
     acc = torch.empty((num_tiles, CH_PAD, p), dtype=torch.float32, device=table.device)
     trans = torch.empty((num_tiles, p), dtype=torch.float32, device=table.device)
     n_proc = torch.empty((num_tiles,), dtype=torch.int32, device=table.device)
-    with torch.cuda.device(table.device):
-        err = fn(
-            drop, int(exit_vote),
-            table.data_ptr(), flat.data_ptr(), block_start.data_ptr(), counts.data_ptr(),
-            num_tiles, tiles_x, chunk,
-            acc.data_ptr(), trans.data_ptr(), n_proc.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"composite_fwd_ablation ({variant}) launch failed: cudaError {err}")
+    kernel_build.launch(
+        f"composite_fwd_ablation ({variant})", fn, table.get_device(),
+        drop, int(exit_vote),
+        table.data_ptr(), flat.data_ptr(), block_start.data_ptr(), counts.data_ptr(),
+        num_tiles, tiles_x, chunk,
+        acc.data_ptr(), trans.data_ptr(), n_proc.data_ptr(),
+    )
     tracing.count_launch("k1_ablation_launches")
     return acc, trans, n_proc

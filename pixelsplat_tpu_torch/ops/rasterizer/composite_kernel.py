@@ -109,13 +109,14 @@ def composite_core_plain(
     return acc, trans, n_proc
 
 
+FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+
+
 @functools.cache
 def _entry_point():
     """`composite_fwd` of the built library, its C signature declared."""
-    fn = kernel_build.load("composite_fwd").composite_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    return fn
+    return kernel_build.declare(kernel_build.load("composite_fwd"), (("composite_fwd", FWD_ARGTYPES),)).composite_fwd
 
 
 def _check_lists(table, flat, block_start, counts, chunk):
@@ -146,15 +147,13 @@ def _launch(table, flat, block_start, counts, tiles_x, chunk):
     acc = torch.empty((num_tiles, CH_PAD, p), dtype=torch.float32, device=table.device)
     trans = torch.empty((num_tiles, p), dtype=torch.float32, device=table.device)
     n_proc = torch.empty((num_tiles,), dtype=torch.int32, device=table.device)
-    with torch.cuda.device(table.device), tracing.span("kernel.k1"):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
+    with tracing.span("kernel.k1"):
+        kernel_build.launch(
+            "composite_fwd", fn, table.get_device(),
             table.data_ptr(), flat.data_ptr(), block_start.data_ptr(), counts.data_ptr(),
             num_tiles, tiles_x, chunk,
-            acc.data_ptr(), trans.data_ptr(), n_proc.data_ptr(), stream,
+            acc.data_ptr(), trans.data_ptr(), n_proc.data_ptr(),
         )
-    if err != 0:
-        raise RuntimeError(f"composite_fwd launch failed: cudaError {err}")
     tracing.count_launch("k1_launches")
     return acc, trans, n_proc
 
@@ -334,10 +333,7 @@ def chunk_block_map_plain(
 @functools.cache
 def _bwd_entry_point():
     """`composite_bwd` of the built library, its C signature declared."""
-    fn = kernel_build.load("composite_bwd").composite_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    return fn
+    return kernel_build.declare(kernel_build.load("composite_bwd"), (("composite_bwd", BWD_ARGTYPES),)).composite_bwd
 
 
 def _launch_bwd(table, flat, block_start, counts, n_proc, trans, g_acc, g_trans, tiles_x, chunk):
@@ -366,16 +362,14 @@ def _launch_bwd(table, flat, block_start, counts, n_proc, trans, g_acc, g_trans,
     # seeds (log T, S); per flat block its tile or -1.
     sums = torch.empty((n_blocks, p, 2), dtype=torch.float32, device=table.device)
     block_map = torch.empty((n_blocks,), dtype=torch.int32, device=table.device)
-    with torch.cuda.device(table.device), tracing.span("kernel.k2"):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
+    with tracing.span("kernel.k2"):
+        kernel_build.launch(
+            "composite_bwd", fn, table.get_device(),
             table.data_ptr(), flat.data_ptr(), block_start.data_ptr(), counts.data_ptr(),
             n_proc.data_ptr(), trans.data_ptr(), g_acc.data_ptr(), g_trans.data_ptr(),
             num_tiles, tiles_x, chunk, table.shape[0], n_blocks,
-            sums.data_ptr(), block_map.data_ptr(), d_table.data_ptr(), stream,
+            sums.data_ptr(), block_map.data_ptr(), d_table.data_ptr(),
         )
-    if err != 0:
-        raise RuntimeError(f"composite_bwd launch failed: cudaError {err}")
     tracing.count_launch("k2_launches")
     return d_table
 

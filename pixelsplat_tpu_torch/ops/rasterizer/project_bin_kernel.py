@@ -72,25 +72,14 @@ def takes(*tensors: Optional[torch.Tensor]) -> bool:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built library, its C signatures declared."""
-    lib = kernel_build.load("project_bin")
-    lib.project.argtypes = [_P] * 4 + [_I] * 3 + [_L] + [_P] * 4
-    lib.bin_keys.argtypes = [_P] * 7
-    lib.big_pairs.argtypes = [_P] * 8
-    lib.bin_lists.argtypes = [_P] * 3 + [_L, _P] + [_I] * 3 + [_P] * 9
-    lib.occupancy.argtypes = [_P, _P, _I, _P, _P, _P]
-    lib.occupancy_stats.argtypes = [_P, _P] + [_I] * 4 + [_P] * 2
-    for fn in (lib.project, lib.bin_keys, lib.big_pairs, lib.bin_lists, lib.occupancy, lib.occupancy_stats):
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _check(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    return kernel_build.declare(kernel_build.load("project_bin"), (
+        ("project", [_P] * 4 + [_I] * 3 + [_L] + [_P] * 4),
+        ("bin_keys", [_P] * 7),
+        ("big_pairs", [_P] * 8),
+        ("bin_lists", [_P] * 3 + [_L, _P] + [_I] * 3 + [_P] * 9),
+        ("occupancy", [_P, _P, _I, _P, _P, _P]),
+        ("occupancy_stats", [_P, _P] + [_I] * 4 + [_P] * 2),
+    ))
 
 
 def _plane(t: torch.Tensor, g: int, views: int, device, what: str, dtype=torch.float32) -> tuple:
@@ -154,14 +143,11 @@ def project(
             raise ValueError(f"harmonics must be (ch, d_sh, {g}) or (ch, d_sh, V, 1, R), got {tuple(harmonics.shape)}")
     rows = torch.empty((ROWS + ch, views, g), dtype=torch.float32, device=device)
     valid = torch.empty((views, g), dtype=torch.bool, device=device)
-    lib = _lib()
-    with torch.cuda.device(device):
-        err = lib.project(
-            ctypes.byref(scene), extrinsics.data_ptr(), intrinsics.data_ptr(),
-            None if near is None else near.data_ptr(), views, image_shape[0], image_shape[1], g,
-            ctypes.byref(colour), rows.data_ptr(), valid.data_ptr(), _stream(),
-        )
-    _check(err, "project")
+    kernel_build.launch(
+        "project", _lib().project, rows.get_device(), ctypes.byref(scene), extrinsics.data_ptr(), intrinsics.data_ptr(),
+        None if near is None else near.data_ptr(), views, image_shape[0], image_shape[1], g,
+        ctypes.byref(colour), rows.data_ptr(), valid.data_ptr(),
+    )
     tracing.count_launch("project_launches")
     return rows, valid
 
@@ -198,25 +184,24 @@ def bin_lists(projected, shape, tile_size: int, span: int, chunk: int):
     flat, block_start = lists[:shape.pair_budget], lists[shape.pair_budget:shape.pair_budget + t]
     counts, overflow = lists[shape.pair_budget + t:-1], lists[-1]
     k32, k64 = (None, keys.data_ptr()) if shape.wide_keys else (keys.data_ptr(), None)
-    lib = _lib()
+    lib, index = _lib(), keys.get_device()
     big_ids = None
-    with torch.cuda.device(device):
-        _check(lib.bin_keys(ctypes.byref(proj), ctypes.byref(bins), k32, k64, big_dq.data_ptr() if bc else None,
-                            ovf_big.data_ptr(), _stream()), "bin_keys")
-        if bc:
-            # The plain code's stable sort of the big-list keys: the nearest
-            # big Gaussians first, ties by id.
-            big_dq, big_ids = torch.sort(big_dq, stable=True)
-            _check(lib.big_pairs(ctypes.byref(proj), ctypes.byref(bins), big_dq.data_ptr(), big_ids.data_ptr(),
-                                 ovf_big.data_ptr(), k32, k64, _stream()), "big_pairs")
-        # One stable sort by (tile, depth key); ties keep the order of the
-        # positions the keys were written at, as in the plain code's `cat`.
-        sorted_keys, order = torch.sort(keys, stable=True)
-        s32, s64 = (None, sorted_keys.data_ptr()) if shape.wide_keys else (sorted_keys.data_ptr(), None)
-        _check(lib.bin_lists(s32, s64, order.data_ptr(), n, ctypes.byref(bins), shape.capacity, chunk, nb,
-                             ovf_big.data_ptr(), None if big_ids is None else big_ids.data_ptr(),
-                             block_start.data_ptr(), counts.data_ptr(), starts.data_ptr(), block_map.data_ptr(),
-                             overflow.data_ptr(), flat.data_ptr(), _stream()), "bin_lists")
+    kernel_build.launch("bin_keys", lib.bin_keys, index, ctypes.byref(proj), ctypes.byref(bins), k32, k64,
+                        big_dq.data_ptr() if bc else None, ovf_big.data_ptr())
+    if bc:
+        # The plain code's stable sort of the big-list keys: the nearest
+        # big Gaussians first, ties by id.
+        big_dq, big_ids = torch.sort(big_dq, stable=True)
+        kernel_build.launch("big_pairs", lib.big_pairs, index, ctypes.byref(proj), ctypes.byref(bins),
+                            big_dq.data_ptr(), big_ids.data_ptr(), ovf_big.data_ptr(), k32, k64)
+    # One stable sort by (tile, depth key); ties keep the order of the
+    # positions the keys were written at, as in the plain code's `cat`.
+    sorted_keys, order = torch.sort(keys, stable=True)
+    s32, s64 = (None, sorted_keys.data_ptr()) if shape.wide_keys else (sorted_keys.data_ptr(), None)
+    kernel_build.launch("bin_lists", lib.bin_lists, index, s32, s64, order.data_ptr(), n, ctypes.byref(bins),
+                        shape.capacity, chunk, nb, ovf_big.data_ptr(), None if big_ids is None else big_ids.data_ptr(),
+                        block_start.data_ptr(), counts.data_ptr(), starts.data_ptr(), block_map.data_ptr(),
+                        overflow.data_ptr(), flat.data_ptr())
     tracing.count_launch("bin_launches")
     return flat, block_start, counts, overflow
 
@@ -232,19 +217,17 @@ def occupancy(projected, views: int, image_shape: tuple[int, int], tile_size: in
     proj, bins = _proj(projected, g, views, device), _Bins(g, tile_size, tiles_x, tiles_y, num_tiles, span, 0, 0, 0)
     counts = torch.empty((views * (num_tiles + 1),), dtype=torch.int32, device=device)
     hist, n_big = counts[: views * num_tiles].view(views, num_tiles), counts[views * num_tiles:]
-    with torch.cuda.device(device):
-        _check(_lib().occupancy(ctypes.byref(proj), ctypes.byref(bins), views, hist.data_ptr(), n_big.data_ptr(),
-                                _stream()), "occupancy")
+    kernel_build.launch("occupancy", _lib().occupancy, counts.get_device(), ctypes.byref(proj), ctypes.byref(bins),
+                        views, hist.data_ptr(), n_big.data_ptr())
     tracing.count_launch("occupancy_launches")
     return hist, n_big
 
 
-def occupancy_stats(hist: torch.Tensor, n_big: torch.Tensor, big_capacity: int, chunk: int):
-    """(max_count, needed_budget) over the views, each a () int64 tensor:
+def occupancy_stats(hist: torch.Tensor, n_big: torch.Tensor, big_capacity: int, chunk: int) -> torch.Tensor:
+    """(max_count, needed_budget) over the views, one (2,) int64 tensor:
     `tile_occupancy`'s two numbers at this big-list capacity."""
     views, num_tiles = hist.shape
     out = torch.empty((2,), dtype=torch.int64, device=hist.device)
-    with torch.cuda.device(hist.device):
-        _check(_lib().occupancy_stats(hist.data_ptr(), n_big.data_ptr(), views, num_tiles, big_capacity, chunk,
-                                      out.data_ptr(), _stream()), "occupancy_stats")
-    return out[0], out[1]
+    kernel_build.launch("occupancy_stats", _lib().occupancy_stats, out.get_device(), hist.data_ptr(), n_big.data_ptr(),
+                        views, num_tiles, big_capacity, chunk, out.data_ptr())
+    return out

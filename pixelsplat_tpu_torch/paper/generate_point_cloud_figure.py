@@ -19,7 +19,7 @@ Without --scene, the reference's published scene list is used.
 The JAX package renders at fixed settings (`figure_settings`) and drops
 the pairs they cannot hold; the port keeps them where the bounding-box
 pre-pass shows they hold and grows them otherwise
-(`ops/rasterizer/adaptive.py::sufficient_settings`), so no pair is
+(`ops/rasterizer/adaptive.py`: `probe`, `sufficient_settings`), so no pair is
 dropped. The decoder's depth renders do the same from its settings.
 """
 
@@ -34,7 +34,8 @@ import torch
 
 from ..config import load_config
 from ..model.ply_export import export_ply
-from ..ops.rasterizer.adaptive import sufficient_settings
+from ..ops.rasterizer.adaptive import probe, sufficient_settings
+from ..ops.rasterizer.projection import aos_planes
 from ..ops.rasterizer.render import RenderSettings, orthographic_frustum, render_orthographic
 from ..utils.image_io import save_image
 from ..visualization.color_map import apply_color_map_to_image
@@ -113,10 +114,9 @@ class OrthographicPasses:
         self.view_extrinsics = frustum[0][0].cpu().numpy()
         self.view_intrinsics = frustum[1][0].cpu().numpy()
         self.view_near, self.view_far = float(frustum[2][0]), float(frustum[3][0])
-        self.settings = sufficient_settings(
-            frustum[0], frustum[1], frustum[2], self.means, self.covariances, self.opacities,
-            self.image_shape, settings=settings, scale_invariant=False,
-        )
+        occupancy = probe(*frustum[:3], aos_planes(self.means, self.covariances, self.opacities), self.image_shape,
+                          settings, scale_invariant=False)
+        self.settings = sufficient_settings(occupancy, settings, self.means.shape[1], self.image_shape)
         self.record = dict(
             gaussians=int(self.means.shape[1]), jax_settings=settings, settings=self.settings, dropped=[], camera=self.camera, image_shape=self.image_shape,
             scene=(self.means, self.covariances, self.harmonics, self.opacities),
@@ -234,11 +234,9 @@ def generate_scene_figure(
 
     # Turbo-mapped context-view depth renders.
     cameras = [torch.as_tensor(example["context"][k], device=device) for k in ("extrinsics", "intrinsics", "near", "far")]
-    decoder_settings = sufficient_settings(
-        cameras[0][0], cameras[1][0], cameras[2][0], gaussians.means.expand(v, -1, -1),
-        gaussians.covariances.expand(v, -1, -1, -1), gaussians.opacities.expand(v, -1), (h, w),
-        settings=decoder.cfg.render, scale_invariant=True,
-    )
+    planes = aos_planes(gaussians.means[0], gaussians.covariances[0], gaussians.opacities[0])
+    occupancy = probe(cameras[0][0], cameras[1][0], cameras[2][0], planes, (h, w), decoder.cfg.render)
+    decoder_settings = sufficient_settings(occupancy, decoder.cfg.render, gaussians.means.shape[1], (h, w))
     with torch.no_grad():
         rendered = decoder(gaussians, *cameras, (h, w), depth_mode="depth", render_settings=decoder_settings)
     record["decoder"] = dict(

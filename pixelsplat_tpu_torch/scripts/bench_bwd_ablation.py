@@ -23,7 +23,6 @@ ms/launch in `chip_smoke.py` does.
 from __future__ import annotations
 
 import argparse
-import ctypes
 from pathlib import Path
 
 import torch
@@ -53,10 +52,8 @@ def variant_entry(name: str):
     csrc = VARIANT_DIR / name.lstrip("-")
     csrc.mkdir(parents=True, exist_ok=True)
     (csrc / "composite_bwd.cu").write_text(source)
-    fn = kernel_build.load("composite_bwd", csrc).composite_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    return fn
+    lib = kernel_build.load("composite_bwd", csrc)
+    return kernel_build.declare(lib, (("composite_bwd", ck.BWD_ARGTYPES),)).composite_bwd
 
 
 def call(fn, inp: dict) -> torch.Tensor:
@@ -67,12 +64,11 @@ def call(fn, inp: dict) -> torch.Tensor:
     d_table = torch.zeros_like(table)
     sums = torch.empty((n_blocks, 256, 2), dtype=torch.float32, device=table.device)
     block_map = torch.empty((n_blocks,), dtype=torch.int32, device=table.device)
-    err = fn(table.data_ptr(), t.flat.data_ptr(), t.block_start.data_ptr(), t.counts.data_ptr(),
-             inp["n_proc"].data_ptr(), inp["trans"].data_ptr(), inp["g_acc"].data_ptr(), inp["g_trans"].data_ptr(),
-             t.counts.numel(), inp["tiles_x"], chunk, table.shape[0], n_blocks,
-             sums.data_ptr(), block_map.data_ptr(), d_table.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"composite_bwd variant failed: cudaError {err}")
+    kernel_build.launch("composite_bwd variant", fn, table.get_device(),
+                        table.data_ptr(), t.flat.data_ptr(), t.block_start.data_ptr(), t.counts.data_ptr(),
+                        inp["n_proc"].data_ptr(), inp["trans"].data_ptr(), inp["g_acc"].data_ptr(),
+                        inp["g_trans"].data_ptr(), t.counts.numel(), inp["tiles_x"], chunk, table.shape[0], n_blocks,
+                        sums.data_ptr(), block_map.data_ptr(), d_table.data_ptr())
     return d_table
 
 

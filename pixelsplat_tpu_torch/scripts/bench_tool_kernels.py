@@ -20,11 +20,9 @@ be cut into column groups) are held the same way and not timed. Columns:
                   CUDA activity (kernels and copies) of `iters` further
                   calls, summed by name and divided by the calls
   host us         host microseconds per call: `time.perf_counter` around
-                  1,000 calls with no synchronisation, for the wrapper
-                  (new) and for the wrapper as it was before its launch
-                  path was slimmed (old, written out below), on the first
-                  4,096 rows of the same layout (same strides and route,
-                  so the device never holds the host back)
+                  1,000 calls of the wrapper with no synchronisation, on
+                  the first 4,096 rows of the same layout (same strides
+                  and route, so the device never holds the host back)
   bound           bytes read once and written once over 3.35 TB/s
   route           the copy kernel's route for the layout
 
@@ -41,6 +39,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import kernel_build
 from ..ops import kernel_tools
 from . import bench_segment_sum
 from .eval_scene import card_line, cuda_ms
@@ -101,46 +100,15 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 # ---------------------------------------------------------------------------
-# The wrappers' launch path as it was before it was slimmed: a Stream
-# object and a device guard on every call.
-
-
-def old_smoke_scale(x: torch.Tensor) -> torch.Tensor:
-    y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = kernel_tools._smoke_entry_point()(
-            x.data_ptr(), y.data_ptr(), x.numel(), torch.cuda.current_stream(x.device).cuda_stream
-        )
-    if err != 0:
-        raise RuntimeError(f"smoke_scale launch failed: cudaError {err}")
-    return y
-
-
-def old_copy_rows(x: torch.Tensor, route: int) -> torch.Tensor:
-    n, m = x.shape
-    out = torch.empty((n, m), dtype=x.dtype, device=x.device)
-    if out.data_ptr() % 16:
-        raise RuntimeError("copy_rows: the output is not 16-byte aligned")
-    with torch.cuda.device(x.device):
-        err = kernel_tools._copy_rows_library().copy_rows(
-            x.data_ptr(), out.data_ptr(), n, m, x.stride(0), x.stride(1), x.element_size(), route,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"copy_rows launch failed: cudaError {err}")
-    return out
-
-
-# ---------------------------------------------------------------------------
 # Measurements
 
 
 def raw_stream_matches() -> bool:
-    """The lean path's stream handle equals PyTorch's on a side stream."""
+    """The launch path's stream handle equals PyTorch's on a side stream."""
     index = torch.cuda.current_device()
     side = torch.cuda.Stream()
     with torch.cuda.stream(side):
-        ok = kernel_tools.current_raw_stream(index) == torch.cuda.current_stream().cuda_stream
+        ok = kernel_build.current_raw_stream(index) == torch.cuda.current_stream().cuda_stream
     return ok and side.cuda_stream != torch.cuda.default_stream(index).cuda_stream
 
 
@@ -214,16 +182,15 @@ def bench_tools(layouts: dict[str, torch.Tensor], seed: int = 0, rounds: int = 7
     x = torch.randn((256, 256), device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
     cases = [dict(
         row=dict(label="f32 (256, 256)"), x=x, kernel=kernel_tools.smoke_scale, plain=kernel_tools.smoke_scale_plain,
-        library=lambda x: torch.mul(x, 2.0), old=old_smoke_scale, head=x, iters=200,
+        library=lambda x: torch.mul(x, 2.0), head=x, iters=200,
     )]
     for label, t in layouts.items():
         out = kernel_tools.copy_rows(t)
         route = kernel_tools.copy_rows_route(tuple(t.shape), t.stride(), t.element_size(), t.data_ptr(), out.data_ptr())
-        code = kernel_tools.COPY_ROUTES.index(route)
         cases.append(dict(
             row=dict(label=label, shape=tuple(t.shape), strides=t.stride(), route=route), x=t,
             kernel=kernel_tools.copy_rows, plain=kernel_tools.copy_rows_plain, library=kernel_tools.copy_rows_plain,
-            old=lambda t, code=code: old_copy_rows(t, code), head=t[:HOST_ROWS], iters=20,
+            head=t[:HOST_ROWS], iters=20,
         ))
     for case in cases:
         row, t, kernel, library = case["row"], case["x"], case["kernel"], case["library"]
@@ -233,9 +200,8 @@ def bench_tools(layouts: dict[str, torch.Tensor], seed: int = 0, rounds: int = 7
                    bound_ms=2 * t.numel() * t.element_size() / PEAK_BYTES_PER_S * 1e3)
         del out, plain
         row["ms"], row["library_ms"] = alternating_ms(lambda: kernel(t), lambda: library(t), rounds, case["iters"])
-        head, old = case["head"], case["old"]
+        head = case["head"]
         row["host_us"] = host_us(lambda: kernel(head))
-        row["host_us_old"] = host_us(lambda: old(head))
     smoke = cases[0]["row"]
     smoke["plain_ms"] = cuda_ms(lambda: kernel_tools.smoke_scale_plain(x), iters=200)
     for case in cases:
@@ -254,7 +220,7 @@ def format_row(name: str, row: dict) -> str:
     route = f" route {row['route']}," if "route" in row else ""
     return (f"{name} {row['label']}:{route} same bits {row['equal']} | ms {row['ms']:.5f} lib {row['library_ms']:.5f} "
             f"| dev ms {_ms(row['device_ms'])} lib {_ms(row['library_device_ms'])} "
-            f"| host us {row['host_us']:.2f} (old path {row['host_us_old']:.2f}) | bound {row['bound_ms']:.5f} ms (bytes)")
+            f"| host us {row['host_us']:.2f} | bound {row['bound_ms']:.5f} ms (bytes)")
 
 
 def main() -> None:

@@ -153,15 +153,13 @@ def occupancy_pair(inputs: dict, big_capacity: int, span: int) -> tuple[tuple, t
     e, k, n = inputs["cams"]
     shape = inputs["image_shape"]
     planes = soa_planes(inputs["soa"])
-    max_count, budget, chosen = adaptive._occupancy_stats(
-        e, k, n, planes, shape, s.tile_size, s.span, big_capacity, s.chunk
-    )
+    max_count, budget, chosen = adaptive.probe(e, k, n, planes, shape, replace(s, big_capacity=big_capacity))
     rows, valid = project_bin_kernel.project(e, k, n, planes, shape)
     views = [ProjectedGaussians(*rows[:, v], color=None, opacity=planes[9], valid=valid[v]) for v in range(e.shape[0])]
     n_big = max(int(binning.count_big(p, shape, s.tile_size, s.span)) for p in views)
     plain_capacity = big_capacity if n_big <= big_capacity else -(-n_big // s.chunk) * s.chunk
     plain = [binning.tile_occupancy(p, shape, s.tile_size, s.span, plain_capacity, s.chunk) for p in views]
-    return (chosen, int(max_count), int(budget)), (
+    return (chosen, max_count, budget), (
         plain_capacity, max(int(m) for m, _ in plain), max(int(b) for _, b in plain)
     )
 
@@ -214,7 +212,7 @@ def time_stages(inputs: dict) -> dict:
         with torch.enable_grad():
             # A plane that needs a gradient sends the probe down the plain path.
             p = planes if kernel else (planes[0].detach().requires_grad_(), *planes[1:])
-            return adaptive._occupancy_stats(e, k, n, p, shape, s.tile_size, s.span, 256, s.chunk)
+            return adaptive.probe(e, k, n, p, shape, replace(s, big_capacity=256))
 
     out["occupancy"] = dict(
         ms=cuda_ms(lambda: probe(True), iters=20, warmup=3),

@@ -22,7 +22,6 @@ signatures (the chunk-parallel `composite_bwd`, with its scratch).
 from __future__ import annotations
 
 import argparse
-import ctypes
 from pathlib import Path
 
 import torch
@@ -39,23 +38,19 @@ from .train_scene import backward_inputs, make_train_scene
 def other_kernels(csrc: Path):
     """(forward, backward) of the other build, with the wrappers' Python
     signatures; neither counts launches."""
-    fwd_fn = kernel_build.load("composite_fwd", csrc).composite_fwd
-    fwd_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-    fwd_fn.restype = ctypes.c_int
-    bwd_fn = kernel_build.load("composite_bwd", csrc).composite_bwd
-    bwd_fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
-    bwd_fn.restype = ctypes.c_int
+    fwd_fn = kernel_build.declare(kernel_build.load("composite_fwd", csrc),
+                                  (("composite_fwd", ck.FWD_ARGTYPES),)).composite_fwd
+    bwd_fn = kernel_build.declare(kernel_build.load("composite_bwd", csrc),
+                                  (("composite_bwd", ck.BWD_ARGTYPES),)).composite_bwd
 
     def fwd(table, flat, block_start, counts, tiles_x, chunk, tile_size=16):
         n = counts.shape[0]
         acc = torch.empty((n, ck.CH_PAD, 256), device=table.device)
         trans = torch.empty((n, 256), device=table.device)
         n_proc = torch.empty((n,), dtype=torch.int32, device=table.device)
-        err = fwd_fn(table.data_ptr(), flat.data_ptr(), block_start.data_ptr(), counts.data_ptr(), n, tiles_x,
-                     chunk, acc.data_ptr(), trans.data_ptr(), n_proc.data_ptr(),
-                     torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"the other composite_fwd failed: cudaError {err}")
+        kernel_build.launch("the other composite_fwd", fwd_fn, table.get_device(), table.data_ptr(), flat.data_ptr(),
+                            block_start.data_ptr(), counts.data_ptr(), n, tiles_x, chunk, acc.data_ptr(),
+                            trans.data_ptr(), n_proc.data_ptr())
         return acc, trans, n_proc
 
     def bwd(table, flat, block_start, counts, n_proc, trans, g_acc, g_trans, tiles_x, chunk, tile_size=16):
@@ -63,12 +58,10 @@ def other_kernels(csrc: Path):
         n_blocks = flat.numel() // chunk
         sums = torch.empty((n_blocks, 256, 2), device=table.device)
         block_map = torch.empty((n_blocks,), dtype=torch.int32, device=table.device)
-        err = bwd_fn(table.data_ptr(), flat.data_ptr(), block_start.data_ptr(), counts.data_ptr(),
-                     n_proc.data_ptr(), trans.data_ptr(), g_acc.data_ptr(), g_trans.data_ptr(),
-                     counts.shape[0], tiles_x, chunk, table.shape[0], n_blocks, sums.data_ptr(),
-                     block_map.data_ptr(), d_table.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"the other composite_bwd failed: cudaError {err}")
+        kernel_build.launch("the other composite_bwd", bwd_fn, table.get_device(), table.data_ptr(), flat.data_ptr(),
+                            block_start.data_ptr(), counts.data_ptr(), n_proc.data_ptr(), trans.data_ptr(),
+                            g_acc.data_ptr(), g_trans.data_ptr(), counts.shape[0], tiles_x, chunk, table.shape[0],
+                            n_blocks, sums.data_ptr(), block_map.data_ptr(), d_table.data_ptr())
         return d_table
 
     return fwd, bwd

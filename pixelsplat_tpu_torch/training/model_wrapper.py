@@ -40,7 +40,7 @@ from ..model.decoder.decoder_splatting import DecoderSplatting, DecoderSplatting
 from ..model.encoder.data_shim import get_data_shim
 from ..model.encoder.encoder_epipolar import EncoderEpipolar, EncoderEpipolarCfg
 from ..model.types import Gaussians
-from ..ops.rasterizer.adaptive import choose_settings_planes
+from ..ops.rasterizer.adaptive import choose_settings, probe
 from ..ops.rasterizer.projection import GaussiansSoA, aos_planes, soa_planes
 from ..ops.rasterizer.render import RenderSettings
 from ..parallel.distributed import is_rank_zero
@@ -386,20 +386,22 @@ class ModelWrapper:
         image_shape: tuple[int, int],
     ) -> RenderSettings:
         """Occupancy-adaptive render settings for batch element 0's views
-        (three reads back from the device per scene, `choose_settings`)."""
+        (two reads back from the device per scene, `probe`)."""
         if isinstance(gaussians, GaussiansSoA):
             planes = soa_planes(GaussiansSoA(*(None if x is None else x[0] for x in gaussians)))
         else:
             planes = aos_planes(gaussians.means[0], gaussians.covariances[0], gaussians.opacities[0])
+        settings = self.decoder.cfg.render
         with torch.no_grad():
-            return choose_settings_planes(
+            occupancy = probe(
                 extrinsics[0].to(self.device),
                 intrinsics[0].to(self.device),
                 near[0].to(self.device),
                 planes,
                 image_shape,
-                settings=self.decoder.cfg.render,
+                settings,
             )
+        return choose_settings(occupancy, settings, planes[0].shape[-1], image_shape)
 
     def make_eval_decode(self) -> Callable:
         """`decode_fn(gaussians, extrinsics, intrinsics, near, far,

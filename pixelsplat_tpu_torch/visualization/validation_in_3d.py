@@ -10,7 +10,7 @@ The JAX package renders the projections at fixed settings
 (`PROJECTION_SETTINGS`) and drops whatever (gaussian, tile) pairs they
 cannot hold. The port keeps those settings where a bounding-box pre-pass
 shows they hold each view's lists, and otherwise grows the lists to what
-the view needs (`ops/rasterizer/adaptive.py::sufficient_settings`), so no
+the view needs (`ops/rasterizer/adaptive.py`: `probe`, `sufficient_settings`), so no
 pair is dropped. It returns the pairs it dropped (zero) and the settings
 it used.
 """
@@ -22,7 +22,8 @@ from typing import NamedTuple
 import torch
 
 from ..model.types import Gaussians
-from ..ops.rasterizer.adaptive import sufficient_settings
+from ..ops.rasterizer.adaptive import probe, sufficient_settings
+from ..ops.rasterizer.projection import aos_planes
 from ..ops.rasterizer.render import RenderSettings, orthographic_frustum, render_orthographic
 from .drawing.cameras import compute_equal_aabb_with_margin, draw_cameras
 
@@ -86,14 +87,13 @@ def render_projections(
     b = gaussians.means.shape[0]
     background = gaussians.means.new_zeros((b, 3))
     images, overflows, chosen = [], [], []
+    planes, shape = aos_planes(gaussians.means, gaussians.covariances, gaussians.opacities), (resolution, resolution)
     for camera in projection_cameras(gaussians.means, margin):
         extrinsics, intrinsics, near, _ = orthographic_frustum(
             camera.extrinsics, camera.width, camera.width, camera.near, camera.far
         )
-        fitted = sufficient_settings(
-            extrinsics, intrinsics, near, gaussians.means, gaussians.covariances, gaussians.opacities,
-            (resolution, resolution), settings=settings, scale_invariant=False,
-        )
+        occupancy = probe(extrinsics, intrinsics, near, planes, shape, settings, scale_invariant=False)
+        fitted = sufficient_settings(occupancy, settings, gaussians.means.shape[1], shape)
         image, overflow = render_orthographic(
             camera.extrinsics, camera.width, camera.width, camera.near, camera.far, (resolution, resolution),
             background, gaussians.means, gaussians.covariances, gaussians.harmonics, gaussians.opacities,

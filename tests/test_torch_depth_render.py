@@ -1,4 +1,4 @@
-"""The depth and orthographic renderers, `render_adaptive`,
+"""The depth and orthographic renderers, the occupancy-adaptive settings,
 `sample_training_rays`, the decoder's `depth_mode` and one
 `re10k_depth_loss` training step, against the JAX package on the CPU.
 
@@ -47,7 +47,7 @@ from pixelsplat_tpu_torch.model.encoder.encoder_epipolar import EncoderEpipolar 
 from pixelsplat_tpu_torch.model.types import Gaussians as PtGaussians
 from pixelsplat_tpu_torch.ops.rasterizer import adaptive as pt_adaptive
 from pixelsplat_tpu_torch.ops.rasterizer import composite_kernel
-from pixelsplat_tpu_torch.ops.rasterizer.projection import pack_gaussians_soa
+from pixelsplat_tpu_torch.ops.rasterizer.projection import aos_planes, pack_gaussians_soa
 from pixelsplat_tpu_torch.training.model_wrapper import ModelWrapper as PtWrapper
 from pixelsplat_tpu_torch.training.model_wrapper import TrainCfg
 from pixelsplat_tpu_torch.training.optimizer import OptimizerCfg
@@ -195,12 +195,22 @@ def adaptive_scene(g=512, seed=0):
     return extr, intr, np.ones(1, np.float32), np.full(1, 100.0, np.float32), means, covs, sh, opac
 
 
+def choose_port_settings(extr, intr, near, means, covs, opac, kw):
+    """The port's evaluation settings for the scene at 64x64, from the
+    candidate capacities 64, 128 and 256."""
+    settings = pt_render.RenderSettings(**kw)
+    planes = aos_planes(t(means), t(covs), t(opac))
+    occupancy = pt_adaptive.probe(t(extr), t(intr), t(near), planes, (64, 64), settings)
+    return pt_adaptive.choose_settings(occupancy, settings, means.shape[1], (64, 64), capacities=(64, 128, 256))
+
+
 @pytest.mark.parametrize("seed", [0, 3])
 def test_render_adaptive_matches_jax_and_fixed_capacity(seed):
-    """The port's `render_adaptive` chooses the settings the JAX package's
-    `choose_settings` chooses, and renders the image that JAX's `render`
-    gives at them, which is what JAX's `render_adaptive` returns
-    (`adaptive.py:165-190`; its render jitted here)."""
+    """The port's `probe` and `choose_settings` choose the settings the JAX
+    package's `choose_settings` chooses, and `render` at them gives the
+    image that JAX's `render` gives at them, which is what JAX's
+    `render_adaptive` returns (`adaptive.py:165-190`; its render jitted
+    here)."""
     extr, intr, near, far, means, covs, sh, opac = adaptive_scene(seed=seed)
     bg = np.zeros((1, 3), np.float32)
     kw = dict(capacity=1024, big_capacity=32, chunk=64)
@@ -208,10 +218,7 @@ def test_render_adaptive_matches_jax_and_fixed_capacity(seed):
         *(jnp.asarray(a) for a in (extr, intr, near, means, covs, opac)), (64, 64),
         settings=jx_render.RenderSettings(**kw), capacities=(64, 128, 256),
     )
-    chosen_p = pt_adaptive.choose_settings(
-        *(t(a) for a in (extr, intr, near, means, covs, opac)), (64, 64),
-        settings=pt_render.RenderSettings(**kw), capacities=(64, 128, 256),
-    )
+    chosen_p = choose_port_settings(extr, intr, near, means, covs, opac, kw)
     assert (chosen_p.capacity, chosen_p.pair_budget) == (chosen_j.capacity, chosen_j.pair_budget)
     assert chosen_p.capacity < kw["capacity"]
     args = (extr, intr, near, far, bg, means, covs, sh, opac)
@@ -220,9 +227,7 @@ def test_render_adaptive_matches_jax_and_fixed_capacity(seed):
         *args, settings=chosen_j,
     )
     tensors = [t(a) for a in args]
-    got = pt_adaptive.render_adaptive(
-        *tensors[:4], (64, 64), *tensors[4:], settings=pt_render.RenderSettings(**kw), capacities=(64, 128, 256)
-    ).numpy()
+    got = pt_render.render(*tensors[:4], (64, 64), *tensors[4:], scale_invariant=True, settings=chosen_p).numpy()
     fixed = pt_render.render(*tensors[:4], (64, 64), *tensors[4:], settings=pt_render.RenderSettings(**kw)).numpy()
     assert got.shape == want.shape == (1, 3, 64, 64)
     assert_render_close(got, want)
@@ -248,10 +253,7 @@ def test_choose_settings_holds_every_big_gaussian():
         *(jnp.asarray(a) for a in (extr, intr, near, means, covs, opac)), (64, 64),
         settings=jx_render.RenderSettings(**kw), capacities=(64, 128, 256),
     )
-    chosen_p = pt_adaptive.choose_settings(
-        *(t(a) for a in (extr, intr, near, means, covs, opac)), (64, 64),
-        settings=pt_render.RenderSettings(**kw), capacities=(64, 128, 256),
-    )
+    chosen_p = choose_port_settings(extr, intr, near, means, covs, opac, kw)
     assert chosen_j.big_capacity == kw["big_capacity"] < chosen_p.big_capacity
     assert chosen_p.big_capacity % kw["chunk"] == 0 and chosen_p.pair_budget >= chosen_j.pair_budget
     soa = pack_gaussians_soa(t(means[0]), t(covs[0]), t(opac[0]), harmonics=t(sh[0]))

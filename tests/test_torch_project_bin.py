@@ -120,12 +120,11 @@ def test_the_soa_probe_chooses_what_the_aos_probe_chooses(big_capacity):
     b, g = extr.shape[0], means.shape[0]
     settings = RenderSettings(capacity=4096, big_capacity=big_capacity, chunk=64)
     soa = pack_gaussians_soa(means, covs, opac, harmonics=sh)
-    got = adaptive.choose_settings_planes(extr, intr, near, soa_planes(soa), IMAGE, settings=settings)
-    want = adaptive.choose_settings(
-        extr, intr, near, means[None].expand(b, g, 3), covs[None].expand(b, g, 3, 3), opac[None].expand(b, g),
-        IMAGE, settings=settings,
-    )
+    got = adaptive.probe(extr, intr, near, soa_planes(soa), IMAGE, settings)
+    planes = aos_planes(means[None].expand(b, g, 3), covs[None].expand(b, g, 3, 3), opac[None].expand(b, g))
+    want = adaptive.probe(extr, intr, near, planes, IMAGE, settings)
     assert got == want
+    assert adaptive.choose_settings(got, settings, g, IMAGE) == adaptive.choose_settings(want, settings, g, IMAGE)
     assert all(tracing.counter(c) == 0 for c in COUNTERS)
 
 
@@ -136,7 +135,8 @@ def test_the_probe_counts_what_count_big_and_tile_occupancy_count():
     extr, intr, near, _ = cams
     b, g = extr.shape[0], means.shape[0]
     planes = aos_planes(means[None].expand(b, g, 3), covs[None].expand(b, g, 3, 3), opac[None].expand(b, g))
-    max_count, budget, big_capacity = adaptive._occupancy_stats(extr, intr, near, planes, IMAGE, 16, 2, 8, 64)
+    settings = RenderSettings(tile_size=16, span=2, big_capacity=8, chunk=64)
+    max_count, budget, big_capacity = adaptive.probe(extr, intr, near, planes, IMAGE, settings)
     projected = []
     for v in range(b):
         scale = 1.0 / near[v]
@@ -148,8 +148,8 @@ def test_the_probe_counts_what_count_big_and_tile_occupancy_count():
     assert n_big > 8  # the big list grows
     assert big_capacity == -(-n_big // 64) * 64
     stats = [binning.tile_occupancy(p, IMAGE, 16, 2, big_capacity, 64) for p in projected]
-    assert int(max_count) == max(int(m) for m, _ in stats)
-    assert int(budget) == max(int(x) for _, x in stats)
+    assert max_count == max(int(m) for m, _ in stats)
+    assert budget == max(int(x) for _, x in stats)
 
 
 @pytest.mark.parametrize("case", ["default", "span3", "wide", "budget"])
@@ -314,7 +314,7 @@ def test_a_scene_launches_each_kernel_and_syncs_only_where_declared():
     counters = got["counters"]
     assert (counters["project_launches"], counters["bin_launches"], counters["occupancy_launches"]) == (4, 3, 1)
     assert not {"upload.inverse_se3", "upload.fov_vector"} & set(got["spans"])
-    assert got["spans"]["settings.read"]["calls"] == 3
+    assert got["spans"]["settings.read"]["calls"] == 2
 
 
 @pytest.mark.cuda

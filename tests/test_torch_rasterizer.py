@@ -196,14 +196,16 @@ def test_tile_occupancy_and_choose_settings():
     extr[:, 0, 3] = [-0.3, 0.0, 0.3]
     args = (extr, np.tile(K, (b, 1, 1)), np.full(b, 1.5, np.float32),
             np.tile(means, (b, 1, 1)), np.tile(covs, (b, 1, 1, 1)), np.tile(opac, (b, 1)))
-    for margin in (1.0, 1.2):
-        settings = jx_render.RenderSettings(capacity=4096, big_capacity=64)
-        jx = jx_adaptive.choose_settings(*(jnp.asarray(a) for a in args), IMAGE, settings=settings, margin=margin)
-        pt = pt_adaptive.choose_settings(
-            *(t(a) for a in args), IMAGE,
-            settings=pt_render.RenderSettings(capacity=4096, big_capacity=64), margin=margin,
-        )
-        assert (pt.capacity, pt.pair_budget, pt.span, pt.chunk) == (jx.capacity, jx.pair_budget, jx.span, jx.chunk)
+    jx = jx_adaptive.choose_settings(
+        *(jnp.asarray(a) for a in args), IMAGE, settings=jx_render.RenderSettings(capacity=4096, big_capacity=64)
+    )
+    settings = pt_render.RenderSettings(capacity=4096, big_capacity=64)
+    extr_t, intr_t, near_t, means_t, covs_t, opac_t = (t(a) for a in args)
+    occupancy = pt_adaptive.probe(
+        extr_t, intr_t, near_t, pt_projection.aos_planes(means_t, covs_t, opac_t), IMAGE, settings
+    )
+    pt = pt_adaptive.choose_settings(occupancy, settings, means.shape[0], IMAGE)
+    assert (pt.capacity, pt.pair_budget, pt.span, pt.chunk) == (jx.capacity, jx.pair_budget, jx.span, jx.chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -390,3 +390,67 @@ def test_tool_scripts_import_without_building(tmp_path):
         ["composite_bwd", "composite_fwd", "composite_fwd_ablation", "conv7", "copy_rows", "project_bin", "smoke_scale"]
     )
     assert not list(tmp_path.iterdir())
+
+
+# ---------------------------------------------------------------------------
+# One launch path
+
+
+def test_only_kernel_build_reads_the_stream_or_declares_return_types():
+    """Every kernel wrapper launches through `kernel_build.launch` and types
+    its entry points with `kernel_build.declare`: no other module of the
+    package reads a stream handle or sets a `restype`, but for the bench's
+    check that the launch path's handle is PyTorch's."""
+    package = ROOT / "pixelsplat_tpu_torch"
+    found = sorted(str(p.relative_to(package)) for p in package.rglob("*.py")
+                   if re.search(r"cuda_stream|restype", p.read_text()))
+    assert found == ["kernel_build.py", "scripts/bench_tool_kernels.py"]
+    check = bench_tool_kernels.raw_stream_matches
+    assert "cuda_stream" in check.__code__.co_names
+
+
+@pytest.mark.parametrize("current", [0, 1], ids=["current_device", "other_device"])
+@pytest.mark.parametrize("err", [0, 700])
+def test_launch_passes_the_stream_last_and_raises_on_an_error(monkeypatch, current, err):
+    """`launch` calls the entry point with its arguments and then the
+    device's current raw stream, guards the device only where it is not the
+    current one, and raises on a non-zero code."""
+    guarded = []
+
+    class Guard:
+        def __init__(self, index):
+            guarded.append(index)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(kernel_build, "_cuda_get_device", lambda: current)
+    monkeypatch.setattr(kernel_build, "_cuda_raw_stream", lambda index: 1000 + index)
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return err
+
+    if err:
+        with pytest.raises(RuntimeError, match=f"k launch failed: cudaError {err}"):
+            kernel_build.launch("k", entry, 1, 7, None)
+    else:
+        kernel_build.launch("k", entry, 1, 7, None)
+    assert calls == [(7, None, 1001)]
+    assert guarded == ([] if current == 1 else [1])
+
+
+def test_declare_types_each_entry_point():
+    """`declare` gives each named entry point its argument types and an int
+    return, or the return type a third element names."""
+    import ctypes
+
+    lib = ctypes.CDLL(None)  # the C library: `abs` and `labs` stand in for entry points
+    assert kernel_build.declare(lib, (("abs", [ctypes.c_int]), ("labs", [ctypes.c_long], ctypes.c_long))) is lib
+    assert lib.abs.argtypes == [ctypes.c_int] and lib.abs.restype is ctypes.c_int
+    assert lib.labs.restype is ctypes.c_long and lib.labs(-(2**40)) == 2**40

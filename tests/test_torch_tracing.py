@@ -185,7 +185,7 @@ def test_one_scene_yields_each_span_and_the_same_image(tiny_scene):
         assert calls[name] == 1, name
     for name in ("render.project", "render.bin", "render.composite"):
         assert calls[name] == views, name
-    assert calls["settings.read"] == 3 and calls["settings.occupancy"] == 2
+    assert calls["settings.read"] == 2 and calls["settings.occupancy"] == 2
     assert "kernel.k1" not in calls  # the CPU composites with the plain version
     assert not ({"encode", "settings", "render"} & set(calls))  # the benchmark's own span names
     uploads = {name: n for name, n in calls.items() if name.startswith("upload.")}

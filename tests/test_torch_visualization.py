@@ -38,6 +38,7 @@ from pixelsplat_tpu.visualization.drawing import points as jx_points
 from pixelsplat_tpu_torch.model import ply_export as pt_ply
 from pixelsplat_tpu_torch.model.types import Gaussians as PtGaussians
 from pixelsplat_tpu_torch.ops.rasterizer import adaptive as pt_adaptive
+from pixelsplat_tpu_torch.ops.rasterizer.projection import aos_planes
 from pixelsplat_tpu_torch.ops.rasterizer.render import RenderSettings as PtRenderSettings
 from pixelsplat_tpu_torch.scripts import test_splatter as pt_splatter
 from pixelsplat_tpu_torch.scripts import visualize_epipolar_lines as pt_lines_script
@@ -366,9 +367,9 @@ def test_sufficient_settings_keeps_settings_that_hold():
 
     e, k, n, _ = orthographic_frustum(camera.extrinsics, camera.width, camera.width, camera.near, camera.far)
     settings = PtRenderSettings(capacity=2048, big_capacity=128)
-    chosen = pt_adaptive.sufficient_settings(e, k, n, t(scene[0]), t(scene[1]), t(scene[3]), (32, 32),
-                                             settings=settings, scale_invariant=False)
-    assert chosen is settings
+    planes = aos_planes(t(scene[0]), t(scene[1]), t(scene[3]))
+    occupancy = pt_adaptive.probe(e, k, n, planes, (32, 32), settings, scale_invariant=False)
+    assert pt_adaptive.sufficient_settings(occupancy, settings, scene[0].shape[1], (32, 32)) is settings
 
 
 def test_render_cameras_matches_jax():
