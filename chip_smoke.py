@@ -255,6 +255,13 @@ float32's relative RMS error against float64; K9's ms beside its bound (165
 TFLOP/s), its plain twin and cuDNN float32's default and best algorithms,
 K9 faster than the best; one scene's launches (2).
 
+Then linear (`scripts/bench_linear.py`): the DINO ViT's four linear layers
+of the `re10k` and `re10k_3_view` scenes (2050 and 3075 tokens, 768 ->
+2304, 768, 3072 and 3072 -> 768) through K10, each within twice cuBLAS
+float32's relative RMS error against float64; K10's ms beside its bound
+(165 TFLOP/s) and cuBLAS float32, K10 faster over a scene's 48 launches;
+one scene's launches (48).
+
 Every kernel's launch count is set to 0 just before each path is driven
 and read just after it. The run ends with the card line, a JSON record of
 the kernels and {"ok": true, "device": {...}}.
@@ -1420,6 +1427,34 @@ def conv7_phase(torch) -> dict:
     return dict(scenes=scenes, scene_launches=launches)
 
 
+def linear_phase(torch) -> dict:
+    """`scripts/bench_linear.py` on both evaluation scenes' ViT layers: K10
+    within twice cuBLAS float32's error against float64 and faster than
+    cuBLAS over a scene's 48 launches; then one scene's launches (48)."""
+    from pixelsplat_tpu_torch.scripts import bench_linear
+    from pixelsplat_tpu_torch.scripts.eval_scene import make_eval_scene
+    from pixelsplat_tpu_torch.utils import tracing
+
+    scenes = {name: bench_linear.scene(name, rounds=5) for name in bench_linear.SCENES}
+    for name, r in scenes.items():
+        for label, v in r["layers"].items():
+            if not v["errors"]["k10"] <= 2 * v["errors"]["cublas_f32"]:
+                fail(f"linear {name} {label}: relative RMS error {v['errors']['k10']:.3g} against float64, above "
+                     f"twice cuBLAS float32's {v['errors']['cublas_f32']:.3g}")
+        if not r["scene"]["ms"] < r["scene"]["library_ms"]:
+            fail(f"linear {name}: {r['scene']['ms']:.3f} ms a scene, not faster than cuBLAS float32 "
+                 f"{r['scene']['library_ms']:.3f} ms")
+    scene = make_eval_scene("cuda", seed=SEED)
+    scene.run(SEED)
+    tracing.reset()
+    scene.run(SEED)
+    launches = tracing.counter("linear_split_launches")
+    if launches != 48:
+        fail(f"one re10k scene launched linear_split {launches} times, expected 48")
+    phase("linear", f"one re10k scene: linear_split launched {launches} times")
+    return dict(scenes=scenes, scene_launches=launches)
+
+
 def tools_phase(torch, kernels, first_view):
     """The kernel tools' path (the segment-sum bench's checks and the stage
     ablation on `first_view`'s lists), then each tool kernel against its
@@ -1684,6 +1719,11 @@ def bf16_phase(torch, kernels, seed) -> dict:
     if seen != want_dtypes or tracing.counter("conv7_launches") != 4:
         fail(f"bf16: refinement outputs {seen}, expected {want_dtypes}; conv7 launched "
              f"{tracing.counter('conv7_launches')} times, expected 4 (the f32 policy's)")
+    # The f32 policy runs the ViT's linear layers as K10 (48 launches an
+    # encode); the bf16 policy calls `precision.Linear`.
+    if tracing.counter("linear_split_launches") != 96:
+        fail(f"bf16: linear_split launched {tracing.counter('linear_split_launches')} times, expected 96 (the f32 "
+             f"policy's two encodes)")
     if launches["composite_fwd"] != 2 * TARGET_VIEWS or any(n for k, n in launches.items() if k != "composite_fwd"):
         fail(f"bf16: launches {launches}, expected composite_fwd once per target view per policy")
     g32, g16 = aos["float32"], aos["bfloat16"]
@@ -3057,8 +3097,8 @@ def main() -> None:
         "composite_fwd_ablation": "k1_ablation_launches",
         "smoke_scale": "smoke_scale_launches",
     }
-    if set(built) != set(kernels) | {"project_bin", "conv7"}:
-        fail(f"built {sorted(built)}, expected the kernels {sorted(kernels)}, project_bin and conv7")
+    if set(built) != set(kernels) | {"project_bin", "conv7", "linear_split"}:
+        fail(f"built {sorted(built)}, expected the kernels {sorted(kernels)}, project_bin, conv7 and linear_split")
     for name, (path, log) in built.items():
         regs = [line.strip() for line in log.splitlines() if "registers" in line]
         phase("build", f"{name} -> {path.relative_to(ROOT)} {regs[0] if regs else ''}")
@@ -3083,6 +3123,9 @@ def main() -> None:
 
     # the refinement's two 7x7 convolutions against float64 and cuDNN
     conv7 = conv7_phase(torch)
+
+    # the ViT's four linear layers against float64 and cuBLAS
+    linear = linear_phase(torch)
 
     # 5. the evaluation protocol through the CLI's entry point
     protocol = eval_protocol_phase(torch, kernels)
@@ -3230,6 +3273,18 @@ def main() -> None:
         "by_scene": {name: {**r["scene"], "launches": {k: {m: v[m] for m in ("ms", "library_ms", "library_best_ms")}
                                                        for k, v in r["launches"].items()}}
                      for name, r in c7.items()},
+    })
+    lin = linear["scenes"]
+    record["kernels"].append({
+        "name": "linear_split", "route": "cuda", "source": "pixelsplat_tpu_torch/csrc/linear_split.cu",
+        "replaces": "no Pallas kernel: pixelsplat_tpu/model/encoder/backbone/dino.py (XLA matrix products)",
+        "launches": linear["scene_launches"], "launches_by_path": {"re10k scene": linear["scene_launches"]},
+        **{k: lin[RE10K]["scene"][k] for k in ("ms", "bound_ms", "library_ms")},
+        "bound_by": "operations (3xTF32, 165 TFLOP/s)",
+        "max_rel_rms_err": max(v["errors"]["k10"] for r in lin.values() for v in r["layers"].values()),
+        "by_scene": {name: {**r["scene"], "layers": {k: {m: v[m] for m in ("ms", "library_ms", "width")}
+                                                     for k, v in r["layers"].items()}}
+                     for name, r in lin.items()},
     })
     for k in record["kernels"]:
         if k["launches"] == 0:

@@ -40,9 +40,10 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}  # by source path
 # Sources that build together, one nvcc process each, on the first load of
-# any of them from csrc/: an evaluation scene needs K9 in the encoder, then
-# projection, binning and K1 in the render, so no compile waits for another.
-BUILT_TOGETHER = (("conv7", "composite_fwd", "project_bin"),)
+# any of them from csrc/: an evaluation scene needs K10 and K9 in the
+# encoder, then projection, binning and K1 in the render, so no compile
+# waits for another.
+BUILT_TOGETHER = (("linear_split", "conv7", "composite_fwd", "project_bin"),)
 
 
 def _nvcc() -> str:

@@ -8,7 +8,9 @@ are the reference's (`dino.blocks.0.attn.qkv`, `global_token_mlp.0`, ...).
 With a compute `dtype` (`model/precision.py`) the patch embedding, the
 attention and MLP projections, the token MLPs and the ResNet branch's
 convolutions run in it, as in the JAX module; the LayerNorms and the
-residual stream are f32.
+residual stream are f32. Under the float32 policy on a card, each block's
+four linear layers are K10 (`ops/linear_kernel.py`), which adds the GELU and
+the residuals in its epilogue.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ....ops import linear_kernel
 from ....utils.device_constants import on_device
 from ... import precision
 from .resnet import BackboneResnet, BackboneResnetCfg
@@ -96,13 +99,14 @@ class Attention(nn.Module):
         self.qkv = precision.Linear(dim, 3 * dim, compute_dtype=dtype)
         self.proj = precision.Linear(dim, dim, compute_dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The attention's output, plus `residual` where given."""
         n, t, dim = x.shape
-        qkv = self.qkv(x).reshape(n, t, 3, self.heads, dim // self.heads)
+        qkv = linear_kernel.linear(self.qkv, x).reshape(n, t, 3, self.heads, dim // self.heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)  # (n, heads, t, head_dim) each
         q = q / np.sqrt(dim // self.heads)
         attn = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
-        return self.proj((attn @ v).transpose(1, 2).reshape(n, t, dim))
+        return linear_kernel.linear(self.proj, (attn @ v).transpose(1, 2).reshape(n, t, dim), residual)
 
 
 class Mlp(nn.Module):
@@ -111,9 +115,9 @@ class Mlp(nn.Module):
         self.fc1 = precision.Linear(dim, hidden, compute_dtype=dtype)
         self.fc2 = precision.Linear(hidden, dim, compute_dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # Exact (erf) GELU.
-        return self.fc2(nn.functional.gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """fc2(gelu(fc1(x))) with the exact (erf) GELU, plus `residual` where given."""
+        return linear_kernel.linear(self.fc2, linear_kernel.linear(self.fc1, x, gelu=True), residual)
 
 
 class ViTBlock(nn.Module):
@@ -127,8 +131,10 @@ class ViTBlock(nn.Module):
         self.mlp = Mlp(dim, dim * mlp_ratio, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        # x + attn(norm1(x)), then x + mlp(norm2(x)): the residual is the
+        # last linear layer's, which K10 adds in its epilogue.
+        x = self.attn(self.norm1(x), residual=x)
+        return self.mlp(self.norm2(x), residual=x)
 
 
 class PatchEmbed(nn.Module):

@@ -337,6 +337,7 @@ def test_card_graphs_equal_eager_scene_by_scene(card, pack_soa):
     encoder, units, contexts = card
     kw = [dict(pack_soa=pack_soa, u=u.u, view_order=u.view_order) for u in units]
     eager = [_card_encode(encoder, c, True, **k) for c, k in zip(contexts, kw)]
+    assert tracing.counter("linear_split_launches") == 2 * 48  # the ViT's layers ran as K10 eagerly too
     first = _card_encode(encoder, contexts[0], **kw[0])
     kept = _clone(first)
     second = _card_encode(encoder, contexts[1], **kw[1])
@@ -414,5 +415,6 @@ def test_card_replays_count_k9_and_never_sync(card):
         tracing.enable(False)
     got = tracing.read()
     assert got["counters"]["conv7_launches"] == 2 and got["counters"]["encoder_graph_scenes"] == 1
+    assert got["counters"]["linear_split_launches"] == 48  # 4 layers of 12 blocks, all views in one launch
     assert "host_syncs" not in got["counters"], tracing.table(got)
     assert {k for k in got["spans"]} == {f"encoder.{s}" for s in ("backbone", "epipolar", "refine", "heads")}

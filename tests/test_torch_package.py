@@ -193,6 +193,7 @@ PRODUCTION_SLICE_SOURCES = [
     "csrc/composite_fwd_body.cuh",
     "csrc/conv7.cu",
     "csrc/copy_rows.cu",
+    "csrc/linear_split.cu",
     "csrc/smoke_scale.cu",
     "geometry/epipolar_lines.py",
     "model/encodings.py",
@@ -204,9 +205,11 @@ PRODUCTION_SLICE_SOURCES = [
     "ops/conv7_kernel.py",
     "ops/grid_sample.py",
     "ops/kernel_tools.py",
+    "ops/linear_kernel.py",
     "ops/rasterizer/composite_ablation.py",
     "scripts/bench_conv7.py",
     "scripts/bench_kernel_ablation.py",
+    "scripts/bench_linear.py",
     "scripts/bench_segment_sum.py",
     "scripts/check_alpha_threshold.py",
     "scripts/check_composite_bwd.py",
@@ -285,7 +288,8 @@ def test_kernel_names_are_the_cu_files_only():
     from pixelsplat_tpu_torch import kernel_build
 
     assert kernel_build.kernel_names() == [
-        "composite_bwd", "composite_fwd", "composite_fwd_ablation", "conv7", "copy_rows", "project_bin", "smoke_scale",
+        "composite_bwd", "composite_fwd", "composite_fwd_ablation", "conv7", "copy_rows", "linear_split", "project_bin",
+        "smoke_scale",
     ]
 
 

@@ -174,16 +174,16 @@ def test_bin_shape_gives_the_sizes_of_the_plain_lists(case):
 
 def test_loading_a_rasterizer_library_builds_its_partner_beside_it(monkeypatch):
     """The first load of projection and binning, of K1 or of the encoder's
-    K9 compiles all three at once, one nvcc each; other sources build
+    K10 or K9 compiles all four at once, one nvcc each; other sources build
     alone."""
     built = []
     monkeypatch.setattr(kernel_build, "build_many", lambda names: built.append(tuple(names)))
     monkeypatch.setattr(kernel_build, "build", lambda name, csrc=None: (Path(f"lib{name}.so"), ""))
     monkeypatch.setattr(kernel_build.ctypes, "CDLL", str)
     monkeypatch.setattr(kernel_build, "_loaded", {})
-    for name in ("project_bin", "composite_fwd", "conv7", "copy_rows", "project_bin"):
+    for name in ("project_bin", "composite_fwd", "conv7", "linear_split", "copy_rows", "project_bin"):
         assert kernel_build.load(name) == f"lib{name}.so"
-    assert built == [("conv7", "composite_fwd", "project_bin")] * 3 + [("copy_rows",)]
+    assert built == [("linear_split", "conv7", "composite_fwd", "project_bin")] * 4 + [("copy_rows",)]
 
 
 def test_bin_shape_takes_wide_keys_only_where_the_tiles_leave_under_12_depth_bits():
