@@ -1,16 +1,18 @@
 """The comparison that decides `correct`: what the timed path produced,
-against the plain reference in `reference/`, run after the window on the
-same inputs and weights, which the benchmark made from the seed.
+against the configuration's plain reference model (`reference/<module>.py`,
+found by `spec.reference_module`) and the plain rasterizer, run after the
+window on the same inputs and weights, which the benchmark made from the
+seed.
 
 Every checked scene's rendered views against the reference's, each view by
 the absolute difference over the reference view's RMS, the worst view of
 the checked scenes: its median and 90th and 99th percentiles over the
 view's pixels, which lower precision lifts everywhere, and its RMS, which
 a fault confined to a few tiles or Gaussians lifts; and the scenes of the
-window that dropped any (Gaussian, tile) pair. The checked scenes' depth
-uniforms are kept off the reference's bucket edges (`settle_depth_draws`),
-so no Gaussian lands at another depth on one side and every pixel can be
-held.
+window that dropped any (Gaussian, tile) pair. Where the reference module
+defines `settle_draws`, the checked scenes' draws are first moved off its
+discontinuities (`settle_depth_draws`; pixelSplat's depth uniforms off its
+bucket edges), so that every pixel can be held.
 
 `control.py` puts the reference in the program's place in the nearest
 precision below the configuration's (TF32): the control that must come out
@@ -22,62 +24,36 @@ from __future__ import annotations
 import math
 
 import torch
+from torch import nn
 
-from . import weights as wts
+from . import spec, weights as wts
 from .reference import rasterizer as rast
-from .reference.encoder import Encoder, apply_shims
 
 
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
 
 
-def reference_encoder(cfg: dict, seed: int, device) -> Encoder:
+def reference_encoder(cfg: dict, seed: int, device) -> nn.Module:
     with torch.device(device):
-        encoder = Encoder(cfg["encoder"])
+        encoder = spec.reference_module(cfg).Encoder(cfg["encoder"])
     encoder.load_state_dict(wts.encoder_weights(wts.shapes_of(encoder), seed, device), strict=True)
     return encoder.eval()
 
 
-# Margin of a depth sample's uniform from the reference's bucket edges, far
-# above float32 rounding of the cumulative distribution (~1e-6).
-EDGE_MARGIN = 1e-5
-
-
 def settle_depth_draws(units: list, cfg: dict, seed: int, device) -> list:
-    """`units` with every depth uniform that lies within EDGE_MARGIN of an
-    edge of the reference's cumulative bucket distribution moved to the
-    middle of the nearest bucket at least twice the margin wide.
-
-    Inverse-CDF sampling is discontinuous at the edges: there two correct
-    float32 programs, which round the distribution differently, draw
-    neighbouring buckets and place a Gaussian at another depth. The
-    benchmark chooses its inputs away from the edges, so that the check
-    measures the arithmetic and not where rounding falls."""
-    from dataclasses import replace
-
-    encoder = reference_encoder(cfg, seed, device)
-    out = []
-    for unit in units:
-        context = apply_shims(_to(unit.batch, device), cfg["encoder"])["context"]
-        with torch.no_grad():
-            _, pdf, _ = encoder.depth_distribution(context, unit.view_order)
-        upper = torch.cumsum(pdf, -1)  # (b, v, r, srf, buckets)
-        lower = torch.cat([torch.zeros_like(upper[..., :1]), upper[..., :-1]], -1)
-        middle = (0.5 * (lower + upper))[..., None, :]
-        u = unit.u[..., :, None]  # (b, v, r, srf, gpp, 1)
-        near_edge = (upper[..., None, :] - u).abs().amin(-1) < EDGE_MARGIN
-        wide = ((upper - lower) >= 2 * EDGE_MARGIN)[..., None, :]
-        choice = torch.where(wide, (middle - u).abs(), torch.full_like(middle.expand_as(wide), math.inf)).argmin(-1)
-        settled = torch.gather(middle.expand(*choice.shape, middle.shape[-1]), -1, choice[..., None])[..., 0]
-        out.append(replace(unit, u=torch.where(near_edge, settled, unit.u)))
-    return out
+    """`units` as the reference module's `settle_draws` settles them, or as
+    made where the module has none."""
+    settle = getattr(spec.reference_module(cfg), "settle_draws", None)
+    if settle is None:
+        return units
+    return settle(units, reference_encoder(cfg, seed, device), cfg["encoder"], device)
 
 
-def reference_scene(encoder: Encoder, cfg: dict, unit, device):
+def reference_scene(encoder: nn.Module, cfg: dict, unit, device):
     """(images (V, 3, h, w), per-view Work) of one scene."""
     batch = _to(unit.batch, device)
-    shimmed = apply_shims(batch, cfg["encoder"])
+    shimmed = spec.reference_module(cfg).apply_shims(batch, cfg["encoder"])
     with torch.no_grad():
         means, covs, harm, opac = encoder(shimmed["context"], 0, unit.u, unit.view_order)
         tgt = batch["target"]  # the dataset's bounds, as the protocol renders

@@ -45,6 +45,15 @@ def dealt(span, count: int, seed: int, tag: str) -> list:
     return [values[i] for i in perm.tolist()]
 
 
+def u_shape(config: dict, batch: int) -> tuple:
+    """The shape of a scene's uniforms `u`: (batch, context views, h*w,
+    surfaces, Gaussians a pixel); an encoder section without
+    `num_surfaces` or `gaussians_per_pixel` counts each as 1."""
+    enc = config["encoder"]
+    h, w = config["image_shape"]
+    return (batch, enc["num_context_views"], h * w, enc.get("num_surfaces", 1), enc.get("gaussians_per_pixel", 1))
+
+
 def _cameras(positions: torch.Tensor, focal: float) -> tuple[torch.Tensor, torch.Tensor]:
     """(n, 3) positions -> ((n, 4, 4) extrinsics, (n, 3, 3) intrinsics)."""
     n = positions.shape[0]
@@ -90,7 +99,7 @@ def make_units(traffic: dict, config: dict, seed: int, device) -> list[Unit]:
             return {"image": image, "extrinsics": e, "intrinsics": k, "near": near, "far": torch.full((b, n), float(traffic["far"]))}
 
         batch = {"context": views(images[:, :v], ctx_e, ctx_k), "target": views(images[:, v:], tgt_e, tgt_k)}
-        u = torch.rand((b, v, h * w, enc["num_surfaces"], enc["gaussians_per_pixel"]), generator=dev, device=device)
+        u = torch.rand(u_shape(config, b), generator=dev, device=device)
         order = torch.randperm(v - 1, generator=dev, device=device) if v > 2 else None
         units.append(Unit(batch=batch, u=u, view_order=order))
     return units

@@ -5,15 +5,17 @@ A frozen copy of the published model's forward pass (pixelSplat,
 ViT fused with the DINO ResNet-50, the epipolar transformer with its depth
 encoding and image self-attention, the high-resolution skip, the monocular
 depth head with inverse-CDF sampling, and the Gaussian adapter with SH
-rotated into the world frame. Parameters carry the published module names,
-so one state dict loads here and into the program under test. Everything
-runs in the tensors' dtype; attention forms its keys and values outright.
-It imports nothing of the program under test.
+rotated into the world frame; `settle_draws` keeps a check's depth
+uniforms off the sampling's bucket edges. Parameters carry the published
+module names, so one state dict loads here and into the program under test.
+Everything runs in the tensors' dtype; attention forms its keys and values
+outright. It imports nothing of the program under test.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 from functools import lru_cache
 
 import numpy as np
@@ -629,4 +631,40 @@ def apply_shims(batch: dict, cfg: dict) -> dict:
     for key in out:
         n = out[key]["image"].shape[1]
         out[key] = {**out[key], "near": near[:, None].expand(-1, n), "far": far[:, None].expand(-1, n)}
+    return out
+
+
+# Margin of a depth sample's uniform from the reference's bucket edges, far
+# above float32 rounding of the cumulative distribution (~1e-6).
+EDGE_MARGIN = 1e-5
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def settle_draws(units: list, encoder: Encoder, cfg: dict, device) -> list:
+    """`units` with every depth uniform that lies within EDGE_MARGIN of an
+    edge of the reference's cumulative bucket distribution moved to the
+    middle of the nearest bucket at least twice the margin wide.
+
+    Inverse-CDF sampling is discontinuous at the edges: there two correct
+    float32 programs, which round the distribution differently, draw
+    neighbouring buckets and place a Gaussian at another depth. The
+    benchmark chooses its inputs away from the edges, so that the check
+    measures the arithmetic and not where rounding falls."""
+    out = []
+    for unit in units:
+        context = apply_shims(_to(unit.batch, device), cfg)["context"]
+        with torch.no_grad():
+            _, pdf, _ = encoder.depth_distribution(context, unit.view_order)
+        upper = torch.cumsum(pdf, -1)  # (b, v, r, srf, buckets)
+        lower = torch.cat([torch.zeros_like(upper[..., :1]), upper[..., :-1]], -1)
+        middle = (0.5 * (lower + upper))[..., None, :]
+        u = unit.u[..., :, None]  # (b, v, r, srf, gpp, 1)
+        near_edge = (upper[..., None, :] - u).abs().amin(-1) < EDGE_MARGIN
+        wide = ((upper - lower) >= 2 * EDGE_MARGIN)[..., None, :]
+        choice = torch.where(wide, (middle - u).abs(), torch.full_like(middle.expand_as(wide), math.inf)).argmin(-1)
+        settled = torch.gather(middle.expand(*choice.shape, middle.shape[-1]), -1, choice[..., None])[..., 0]
+        out.append(replace(unit, u=torch.where(near_edge, settled, unit.u)))
     return out

@@ -1,12 +1,14 @@
 """Where the harness finds a cell's pieces by name: `BENCHMARK.json` at the
 root of the checkout, `configs/<config>.json`, `traffic/<traffic>.json`,
-`limits/<workload>.json` and `metrics/<metric>.py`, all beside this file."""
+`limits/<workload>.json`, `metrics/<metric>.py` and the configuration's
+reference model `reference/<module>.py`, all beside this file."""
 
 from __future__ import annotations
 
 import hashlib
 import importlib.util
 import json
+import re
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -55,6 +57,20 @@ def metric_reader(name: str, base: Path = HERE):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.read
+
+
+def reference_module(config: dict):
+    """The module `reference/<name>.py` that holds the configuration's plain
+    reference model, `name` being the file's `"reference"`, or `encoder`
+    where it has none; its contract is `reference/__init__.py`'s."""
+    name = config.get("reference", "encoder")
+    if not isinstance(name, str) or not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", name):
+        raise ValueError(f"configuration {config.get('name')!r}: reference {name!r} is not a module name")
+    module = importlib.import_module(f"{__package__}.reference.{name}")
+    missing = [attr for attr in ("Encoder", "apply_shims") if not hasattr(module, attr)]
+    if missing:
+        raise ValueError(f"configuration {config.get('name')!r}: reference/{name}.py lacks {missing}")
+    return module
 
 
 def sub_seed(seed: int, tag: str) -> int:

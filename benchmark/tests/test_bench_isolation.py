@@ -59,7 +59,10 @@ def test_harness_process_loads_no_jax():
 
 
 def test_reference_process_loads_nothing_of_the_program():
-    loaded = _loaded_after("import benchmark.reference.encoder, benchmark.reference.rasterizer")
+    """Every module under `reference/`, those added later too."""
+    modules = sorted(f"benchmark.reference.{p.stem}" for p in (BENCH / "reference").glob("*.py") if p.stem != "__init__")
+    assert "benchmark.reference.encoder" in modules
+    loaded = _loaded_after("import " + ", ".join(modules))
     assert not loaded & (JAX | {"pixelsplat_tpu_torch"})
 
 

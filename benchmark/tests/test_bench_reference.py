@@ -5,12 +5,13 @@ images."""
 from __future__ import annotations
 
 import copy
+from types import SimpleNamespace
 
 import pytest
 import torch
 
-from benchmark import check, generator, port, weights as wts
-from benchmark.reference import rasterizer as rast
+from benchmark import check, generator, port, spec, weights as wts
+from benchmark.reference import encoder as encoder_module, rasterizer as rast
 from benchmark.reference.encoder import Encoder, apply_shims
 
 from .conftest import TINY, tiny_cell
@@ -64,3 +65,39 @@ def test_weights_are_the_same_for_both_sides():
     assert set(ours) == set(theirs)
     for name in ours:
         assert torch.equal(ours[name], theirs[name]), name
+
+
+def test_settling_moves_a_draw_off_a_bucket_edge():
+    """pixelSplat's reference moves a depth uniform that lies on an edge of
+    its cumulative bucket distribution into a bucket, and leaves the draws
+    away from the edges as made."""
+    unit = _units()[0]
+    encoder = check.reference_encoder(TINY, SEED, "cpu")
+    with torch.no_grad():
+        _, pdf, _ = encoder.depth_distribution(apply_shims(unit.batch, TINY["encoder"])["context"])
+    upper = torch.cumsum(pdf, -1)
+    unit.u[0, 0, 0, 0, 0] = upper[0, 0, 0, 0, 0]
+    settled = check.settle_depth_draws([unit], TINY, SEED, "cpu")[0].u
+    edges = torch.cat([torch.zeros_like(upper[..., :1]), upper], -1)
+    assert float((edges[0, 0, 0, 0] - settled[0, 0, 0, 0, 0]).abs().min()) >= encoder_module.EDGE_MARGIN
+    away = (upper[..., None, :] - unit.u[..., None]).abs().amin(-1) >= encoder_module.EDGE_MARGIN
+    assert torch.equal(settled[away], unit.u[away])
+
+
+def test_settling_dispatches_to_the_reference_module(monkeypatch):
+    """The module's `settle_draws` settles, given the seed's reference
+    encoder; a module without one leaves the units as made."""
+    units = _units()[:2]
+    monkeypatch.setattr(spec, "reference_module", lambda config: SimpleNamespace(Encoder=Encoder, apply_shims=apply_shims))
+    assert check.settle_depth_draws(units, TINY, SEED, "cpu") is units
+    calls = []
+
+    def settle_draws(units, encoder, cfg, device):
+        calls.append((encoder, cfg, device))
+        return units[::-1]
+
+    monkeypatch.setattr(spec, "reference_module", lambda config: SimpleNamespace(
+        Encoder=Encoder, apply_shims=apply_shims, settle_draws=settle_draws))
+    assert check.settle_depth_draws(units, TINY, SEED, "cpu") == units[::-1]
+    (encoder, cfg, device), = calls
+    assert isinstance(encoder, Encoder) and cfg is TINY["encoder"] and device == "cpu"

@@ -2,9 +2,10 @@
 scene, and the operations and bytes the compositing kernel needs for the
 pairs the reference found.
 
-Model FLOPs are the matrix products and convolutions of the reference's
-forward pass, counted by `torch.utils.flop_counter.FlopCounterMode` on meta
-tensors, so shapes alone decide them. They are kept as data in
+Model FLOPs are the matrix products and convolutions of the forward pass
+of the configuration's reference model (`spec.reference_module`), counted
+by `torch.utils.flop_counter.FlopCounterMode` on meta tensors, so shapes
+alone decide them. They are kept as data in
 `flops/<config>.json`; `python -m benchmark.work <config>` writes them.
 
 The compositing kernel's work is per (Gaussian, tile) pair that reached an
@@ -23,7 +24,7 @@ import sys
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from .reference.encoder import Encoder
+from . import generator, spec
 from .spec import HERE, load_json
 
 PEAK_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -60,16 +61,14 @@ def _context(config: dict, b: int) -> dict:
 
 
 def count_flops(config: dict) -> dict:
-    """Model FLOPs of one evaluation scene."""
-    enc = config["encoder"]
-    h, w = config["image_shape"]
-    u_shape = (1, enc["num_context_views"], h * w, enc["num_surfaces"], enc["gaussians_per_pixel"])
+    """Model FLOPs of one evaluation scene, by the configuration's reference
+    model."""
     with torch.device("meta"):
-        model = Encoder(enc)
+        model = spec.reference_module(config).Encoder(config["encoder"])
         ctx = {k: t.to("meta") for k, t in _context(config, 1).items()}
         with FlopCounterMode(display=False) as counter:
             with torch.no_grad():
-                model(ctx, 0, torch.zeros(u_shape))
+                model(ctx, 0, torch.zeros(generator.u_shape(config, 1)), None)
     return {"eval_scene": counter.get_total_flops()}
 
 
