@@ -33,6 +33,15 @@ views (with view embeddings for the epipolar transformer) at batch 3;
 Gaussian per pixel at the most likely depth with the transmittance
 opacity. These four keep `config/main.yaml`'s trainer settings: no remat,
 no accumulation.
+
+`mvsplat` (`config/experiment/mvsplat.yaml`, MVSplat's own
+`config/experiment/re10k.yaml`) is MVSplat's cost-volume encoder
+(`config/model/encoder/costvolume.yaml`) on the same decoder: 128 depth
+candidates, the cost-volume U-Net at 128 channels with attention at stride
+4, the depth U-Net at 32 channels over five levels with attention at
+stride 16, one Gaussian a pixel, trained at batch 14 with LPIPS from the
+first step. The encoder's `name` tells the two encoder configurations
+apart, as the backbone's does.
 """
 
 from __future__ import annotations
@@ -59,7 +68,9 @@ from .model.decoder.decoder_splatting import DecoderSplattingCfg
 from .model.encoder.backbone.dino import BackboneDinoCfg
 from .model.encoder.backbone.resnet import BackboneResnetCfg
 from .model.encoder.common.gaussian_adapter import GaussianAdapterCfg
-from .model.encoder.encoder_epipolar import EncoderEpipolarCfg, OpacityMappingCfg
+from .model.encoder.common.opacity import OpacityMappingCfg
+from .model.encoder.encoder_costvolume import EncoderCostVolumeCfg
+from .model.encoder.encoder_epipolar import EncoderEpipolarCfg
 from .model.encoder.epipolar.epipolar_transformer import EpipolarTransformerCfg
 from .model.encoder.epipolar.image_self_attention import ImageSelfAttentionCfg
 from .ops.rasterizer.render import RenderSettings
@@ -335,9 +346,12 @@ class WandbCfg:
     tags: tuple[str, ...] = ()
 
 
+EncoderCfgUnion = Union[EncoderEpipolarCfg, EncoderCostVolumeCfg]
+
+
 @dataclass(frozen=True)
 class ModelCfg:
-    encoder: EncoderEpipolarCfg = field(default_factory=EncoderEpipolarCfg)
+    encoder: EncoderCfgUnion = field(default_factory=EncoderEpipolarCfg)
     decoder: DecoderSplattingCfg = field(default_factory=DecoderSplattingCfg)
 
 
@@ -512,6 +526,57 @@ def re10k_depth_loss_training() -> TrainingCfg:
     )
 
 
+def mvsplat() -> tuple[EncoderCostVolumeCfg, DecoderSplattingCfg]:
+    """(encoder cfg, decoder cfg) of the `mvsplat` experiment: MVSplat's
+    `config/model/encoder/costvolume.yaml` with its `re10k` experiment's
+    widths, and `config/model/decoder/splatting.yaml` binning at span 3
+    into lists sized for the worst case."""
+    encoder = EncoderCostVolumeCfg(
+        d_feature=128,
+        num_depth_candidates=128,
+        num_surfaces=1,
+        gaussians_per_pixel=1,
+        gaussian_adapter=GaussianAdapterCfg(gaussian_scale_min=0.5, gaussian_scale_max=15.0, sh_degree=4),
+        opacity_mapping=OpacityMappingCfg(initial=0.0, final=0.0, warm_up=1),
+        multiview_trans_attn_split=2,
+        costvolume_unet_feat_dim=128,
+        costvolume_unet_channel_mult=(1, 1, 1),
+        costvolume_unet_attn_res=(4,),
+        depth_unet_feat_dim=32,
+        depth_unet_attn_res=(16,),
+        depth_unet_channel_mult=(1, 1, 1, 1, 1),
+        downscale_factor=4,
+        shim_patch_size=4,
+        num_context_views=2,
+        compute_dtype=None,
+    )
+    # One Gaussian a pixel, its scale capped at 15 x 0.2 of a pixel's
+    # footprint at its depth: on screen a sigma of at most 4.4 px and an
+    # opacity-aware radius of at most 15, so within 3 tiles a side. At span 3
+    # none goes to the big list, whose slots every tile sorts and which
+    # random weights fill by thousands of Gaussians or by none. The flat
+    # lists then hold the worst case of a 2-view 256 x 256 scene in 5 MB
+    # (span^2 x 131,072 Gaussians + 256 tiles x (big list + chunk)), so the
+    # render's memory does not follow the Gaussians' sizes.
+    render = RenderSettings(span=3, pair_budget=3 * 3 * 2 * 256 * 256 + 16 * 16 * (256 + 128))
+    return encoder, DecoderSplattingCfg(render=render)
+
+
+def mvsplat_training() -> TrainingCfg:
+    """The `mvsplat` experiment's training settings: MSE + LPIPS (weight
+    0.05 from the first step) at batch 14 and rate 2e-4 with a 2,000-step
+    warm-up, without remat or accumulation (MVSplat's cosine decay of the
+    rate is not in the port's optimizer)."""
+    return TrainingCfg(
+        optimizer=OptimizerCfg(lr=2e-4, warm_up_steps=2000),
+        train=TrainCfg(depth_mode=None, extended_visualization=False, remat_encoder=False),
+        loss=(LossMseCfg(weight=1.0), LossLpipsCfg(weight=0.05, apply_after_step=0)),
+        gradient_clip_val=0.5,
+        accumulate_grad_batches=1,
+        batch_size=14,
+    )
+
+
 # (model config, training config) by experiment name, for the scripts.
 # Every experiment that keeps config/main.yaml's trainer settings trains as
 # the ablation does (batch 7 unless it says otherwise).
@@ -532,6 +597,7 @@ EXPERIMENTS = {
         re10k_ablation_no_probabilistic_sampling,
         re10k_ablation_no_epipolar_transformer_training,
     ),
+    "mvsplat": (mvsplat, mvsplat_training),
 }
 
 
@@ -565,6 +631,7 @@ __all__ = [
     "BackboneDinoCfg",
     "BackboneResnetCfg",
     "DecoderSplattingCfg",
+    "EncoderCostVolumeCfg",
     "EncoderEpipolarCfg",
     "EpipolarTransformerCfg",
     "GaussianAdapterCfg",
@@ -587,5 +654,7 @@ __all__ = [
     "re10k_3_view_training",
     "re10k_ablation_no_depth_encoding",
     "re10k_ablation_no_probabilistic_sampling",
+    "mvsplat",
+    "mvsplat_training",
     "default_model",
 ]

@@ -1,20 +1,35 @@
-"""Encoder data shims: batch transforms run on device before encoding.
+"""Encoder data shims: batch transforms run on device before encoding, one
+for each encoder.
 
-Port of `pixelsplat_tpu/model/encoder/data_shim.py`.
+Port of `pixelsplat_tpu/model/encoder/data_shim.py`, with MVSplat's shim
+beside pixelSplat's.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Union
 
 from ...dataset.shims.bounds_shim import apply_bounds_shim
 from ...dataset.shims.patch_shim import apply_patch_shim
+from .encoder_costvolume import EncoderCostVolumeCfg
 from .encoder_epipolar import EncoderEpipolarCfg
 
 DataShim = Callable[[dict], dict]
 
 
-def get_data_shim(cfg: EncoderEpipolarCfg) -> DataShim:
+def get_data_shim(cfg: Union[EncoderEpipolarCfg, EncoderCostVolumeCfg]) -> DataShim:
+    """The shim of the encoder `cfg` configures. pixelSplat's: a centre crop
+    to the epipolar transformer's patch multiple and, unless disabled, near
+    and far from the context baseline. MVSplat's: a centre crop to a
+    multiple of `shim_patch_size * downscale_factor`, the dataset's bounds
+    kept."""
+    if cfg.name == "costvolume":
+
+        def data_shim(batch: dict) -> dict:
+            return apply_patch_shim(batch, patch_size=cfg.shim_patch_size * cfg.downscale_factor)
+
+        return data_shim
+
     def data_shim(batch: dict) -> dict:
         batch = apply_patch_shim(
             batch,

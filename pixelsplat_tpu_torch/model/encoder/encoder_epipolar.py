@@ -33,16 +33,11 @@ from ..types import Gaussians
 from .backbone.dino import BackboneDino, BackboneDinoCfg
 from .backbone.resnet import BackboneResnet, BackboneResnetCfg
 from .common.gaussian_adapter import GaussianAdapter, GaussianAdapterCfg, pixel_size
+from .common.opacity import OpacityMappingCfg, map_pdf_to_opacity, opacity_exponent
+from .common.packing import pack
 from .epipolar.depth_predictor_monocular import DepthPredictorMonocular
 from .epipolar.epipolar_transformer import EpipolarTransformer, EpipolarTransformerCfg
 from .graphs import EncoderGraphs, Stage, run_eagerly
-
-
-@dataclass(frozen=True)
-class OpacityMappingCfg:
-    initial: float = 0.0
-    final: float = 0.0
-    warm_up: int = 1
 
 
 @dataclass(frozen=True)
@@ -101,18 +96,14 @@ class EncoderEpipolar(nn.Module):
         if cfg.predict_opacity:
             self.to_opacity = nn.Sequential(nn.ReLU(), nn.Linear(cfg.d_feature, 1))
         self._graphs = EncoderGraphs()
-        self._weight_slots: Optional[list] = None
 
     def opacity_exponent(self, global_step: int) -> float:
         """The warm-up-scheduled exponent of `map_pdf_to_opacity`."""
-        cfg = self.cfg.opacity_mapping
-        frac = min(global_step / cfg.warm_up, 1.0)
-        return 2.0 ** (cfg.initial + frac * (cfg.final - cfg.initial))
+        return opacity_exponent(self.cfg.opacity_mapping, global_step)
 
     def map_pdf_to_opacity(self, pdf: torch.Tensor, global_step: int) -> torch.Tensor:
         """Warm-up-scheduled exponent mapping."""
-        exponent = self.opacity_exponent(global_step)
-        return 0.5 * (1.0 - (1.0 - pdf) ** exponent + pdf ** (1.0 / exponent))
+        return map_pdf_to_opacity(pdf, self.opacity_exponent(global_step))
 
     @contextmanager
     def capture_intermediates(self) -> Iterator[dict]:
@@ -179,36 +170,17 @@ class EncoderEpipolar(nn.Module):
         reads_order = cfg.use_epipolar_transformer and v > 2 and view_order is not None
         inputs["view_order"] = view_order if reads_order else None
         stages = self._stages(global_step, deterministic, pack_soa, generator, visualization_dump)
-        if self._graphed(image, u, visualization_dump):
+        if self._graphs.replays(image, u, visualization_dump, self.depth_predictor.capture is not None):
             if u is None and not deterministic:
                 inputs["u"] = uniforms((b, v, h * w, cfg.num_surfaces, gpp), torch.float32, image.device, generator)
             if reads_order:
                 inputs["view_order"] = view_order.to(image.device)
-            key = (
-                pack_soa, deterministic, self.opacity_exponent(global_step), self.dtype,
-                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-                tuple(None if t is None else (n, t.shape, t.stride(), t.dtype, t.device) for n, t in inputs.items()),
-            )
-            gaussians = self._graphs.run(key, stages, inputs, self._weight_storage())
+            values = (pack_soa, deterministic, self.opacity_exponent(global_step), self.dtype)
+            gaussians = self._graphs.run(self, stages, inputs, values)
         else:
             gaussians = run_eagerly(stages, inputs)
         tracing.count("gaussians", b * v * h * w * cfg.num_surfaces * gpp)
         return gaussians
-
-    def _graphed(self, image: torch.Tensor, u: Optional[torch.Tensor], visualization_dump: Optional[dict]) -> bool:
-        """Whether this call replays graphs: only where nothing outside the
-        returned Gaussians reads the stages (autograd, the visualization
-        dump, `capture_intermediates`, a caller's own stream capture) and
-        the inputs would run on one CUDA device eagerly too."""
-        return (
-            image.is_cuda
-            and not torch.is_grad_enabled()
-            and visualization_dump is None
-            and self.depth_predictor.capture is None
-            and not torch.is_autocast_enabled()
-            and not torch.cuda.is_current_stream_capturing()
-            and (u is None or u.device == image.device)
-        )
 
     def _stages(self, global_step, deterministic, pack_soa, generator, visualization_dump) -> list[Stage]:
         """The encode as its four stages, on the inputs `forward` names:
@@ -238,19 +210,6 @@ class EncoderEpipolar(nn.Module):
                 stages.append(Stage("encoder.refine", transformer.refine, ("low",), "features"))
         stages.append(Stage("encoder.heads", heads, ("features", "image", *cameras, "u"), "gaussians"))
         return stages
-
-    def _weight_storage(self) -> tuple:
-        """Where each parameter and buffer lives now: a replaced tensor or
-        storage changes it, an in-place update does not."""
-        if self._weight_slots is None:
-            self._weight_slots = [
-                (slots, name)
-                for module in self.modules()
-                for slots in (module._parameters, module._buffers)
-                for name, t in slots.items()
-                if t is not None
-            ]
-        return tuple(slots[name].data_ptr() for slots, name in self._weight_slots)
 
     def _gaussians(self, features, image, extrinsics, intrinsics, near, far, u, global_step, deterministic, pack_soa,
                    generator, visualization_dump):
@@ -285,44 +244,11 @@ class EncoderEpipolar(nn.Module):
             (h, w),
         )
 
-        spp = gaussians.means.shape[-2]
-        srf = cfg.num_surfaces
         if visualization_dump is not None:
-            visualization_dump["depth"] = depths.reshape(b, v, h, w, srf, -1)
+            visualization_dump["depth"] = depths.reshape(b, v, h, w, cfg.num_surfaces, -1)
             visualization_dump["scales"] = gaussians.scales.reshape(b, -1, 3)
             visualization_dump["rotations"] = gaussians.rotations.reshape(b, -1, 4)
-        g = v * (h * w) * srf * spp
         opacities = gaussians.opacities
         if cfg.predict_opacity:
             opacities = torch.sigmoid(self.to_opacity(features))[..., None] * opacities  # (b, v, r, 1, 1)
-        if pack_soa:
-            # SoA g-order (v, srf, gpp, r): the sample axis is second
-            # outermost, so the per-ray harmonics factor as (V, 1, R).
-
-            def plane(x):  # (b, v, r, srf, spp) -> (b, g)
-                x = x.expand(b, v, h * w, srf, spp)
-                return x.permute(0, 1, 3, 4, 2).reshape(b, g)
-
-            means = gaussians.means
-            cov = gaussians.covariances
-            cov6 = torch.stack(
-                [plane(cov[..., i, j]) for i, j in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))],
-                dim=1,
-            )  # (b, 6, g)
-            harm = gaussians.harmonics.permute(0, 5, 6, 1, 3, 4, 2)
-            harm = harm.reshape(b, 3, adapter.d_sh, v * srf, 1, h * w)
-            return GaussiansSoA(
-                mean_x=plane(means[..., 0]),
-                mean_y=plane(means[..., 1]),
-                mean_z=plane(means[..., 2]),
-                cov=cov6,
-                opacity=plane(opacities),
-                harmonics=harm,
-            )
-        harmonics = gaussians.harmonics.expand(b, v, h * w, srf, spp, 3, adapter.d_sh)
-        return Gaussians(
-            means=gaussians.means.reshape(b, g, 3),
-            covariances=gaussians.covariances.reshape(b, g, 3, 3),
-            harmonics=harmonics.reshape(b, g, 3, adapter.d_sh),
-            opacities=opacities.reshape(b, g),
-        )
+        return pack(gaussians, opacities, pack_soa)

@@ -5,9 +5,10 @@ An evaluation encode is a few hundred kernel launches, and on an H100 the
 host issues them more slowly than the card runs them, so without graphs the
 card idles through most of the encode. A graph replay issues a stage's
 launches at once. Each stage (`encoder.backbone`, `encoder.epipolar`,
-`encoder.refine`, `encoder.heads`) is its own graph, so that each keeps its
-span around its replay and its device time. The four graphs share one
-memory pool and replay in order on the current stream.
+`encoder.refine`, `encoder.heads` of the epipolar encoder; six of the
+cost-volume encoder) is its own graph, so that each keeps its span around
+its replay and its device time. A signature's graphs share one memory pool
+and replay in order on the current stream.
 
 Capture runs the stages once eagerly on a side stream (kernel builds,
 library handles, the device constants of `utils/device_constants.py`), then
@@ -16,10 +17,11 @@ captures each stage on static copies of the inputs, with the tracer held
 A replay copies the call's inputs into the static ones, replays, and clones
 the outputs, so that nothing returned aliases graph memory.
 
-The caller decides when a graph may run and what the signature holds
-(`EncoderEpipolar.forward`): the graphs are valid for one set of input
-shapes, strides and dtypes, the Python values the stages read, and the
-weights' storage. In-place updates of the weights are read by the replays.
+An encoder asks `EncoderGraphs.replays` whether a call may run graphs and
+hands `EncoderGraphs.run` its stages, its inputs and the Python values its
+stages read: the graphs are valid for one set of input shapes, strides and
+dtypes, those values, the TF32 switches, and the weights' storage. In-place
+updates of the weights are read by the replays.
 """
 
 from __future__ import annotations
@@ -103,11 +105,52 @@ class EncoderGraphs:
 
     def __init__(self):
         self._captured: dict = {}
+        self._weight_slots: Optional[list] = None
 
-    def run(self, key: tuple, stages: list[Stage], inputs: dict[str, Optional[torch.Tensor]], weights: tuple):
+    @staticmethod
+    def replays(image: torch.Tensor, u: Optional[torch.Tensor], visualization_dump: Optional[dict],
+                capturing: bool) -> bool:
+        """Whether an encode of `image` replays graphs: only where nothing
+        outside the returned Gaussians reads the stages (autograd, the
+        visualization dump, an encoder's own capture of intermediates,
+        `capturing`, a caller's own stream capture) and the inputs would run
+        on one CUDA device eagerly too."""
+        return (
+            image.is_cuda
+            and not torch.is_grad_enabled()
+            and visualization_dump is None
+            and not capturing
+            and not torch.is_autocast_enabled()
+            and not torch.cuda.is_current_stream_capturing()
+            and (u is None or u.device == image.device)
+        )
+
+    def _weight_storage(self, module: torch.nn.Module) -> tuple:
+        """Where each parameter and buffer of `module` lives now: a replaced
+        tensor or storage changes it, an in-place update does not."""
+        if self._weight_slots is None:
+            self._weight_slots = [
+                (slots, name)
+                for sub in module.modules()
+                for slots in (sub._parameters, sub._buffers)
+                for name, t in slots.items()
+                if t is not None
+            ]
+        return tuple(slots[name].data_ptr() for slots, name in self._weight_slots)
+
+    def run(self, module: torch.nn.Module, stages: list[Stage], inputs: dict[str, Optional[torch.Tensor]],
+            values: tuple):
         """The last stage's output for `inputs`: replayed from the graphs of
-        `key`, captured first where there are none or `weights` (the
-        parameters' storage) changed since."""
+        this call's signature (`values`, the Python values the stages read,
+        the TF32 switches and the inputs' shapes, strides, dtypes and
+        devices), captured first where there are none or the storage of
+        `module`'s weights changed since."""
+        key = (
+            *values,
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            tuple(None if t is None else (n, t.shape, t.stride(), t.dtype, t.device) for n, t in inputs.items()),
+        )
+        weights = self._weight_storage(module)
         captured = self._captured.get(key)
         if captured is None or captured.weights != weights:
             self._captured.pop(key, None)  # free the stale graphs' pool first

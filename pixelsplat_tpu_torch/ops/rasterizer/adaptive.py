@@ -110,8 +110,8 @@ def choose_settings(
 ) -> RenderSettings:
     """The smallest candidate capacity that holds the largest list (at most
     `settings.capacity`), the pair demand rounded up to whole chunks (at
-    least 65,536 pairs, at most the worst case), and the probe's big-list
-    capacity."""
+    least 65,536 pairs, at most the worst case, and never below a pair
+    budget that `settings` give), and the probe's big-list capacity."""
     chosen = replace(settings, big_capacity=occupancy.big_capacity)
     for c in sorted(capacities):
         if occupancy.max_count <= c <= settings.capacity:
@@ -119,7 +119,7 @@ def choose_settings(
             break
     chunk = settings.chunk
     worst = settings.span**2 * g + _num_tiles(image_shape, settings.tile_size) * (occupancy.big_capacity + chunk)
-    pair_budget = -(-max(min(occupancy.pair_demand, worst), 65536) // chunk) * chunk
+    pair_budget = -(-max(min(occupancy.pair_demand, worst), 65536, settings.pair_budget or 0) // chunk) * chunk
     tracing.count("capacity", chosen.capacity)
     tracing.count("pair_budget", pair_budget)
     tracing.count("big_capacity", occupancy.big_capacity)

@@ -38,6 +38,7 @@ from ..interop.pretrained import init_backbone_from_pretrained
 from ..loss import get_losses
 from ..model.decoder.decoder_splatting import DecoderSplatting, DecoderSplattingCfg
 from ..model.encoder.data_shim import get_data_shim
+from ..model.encoder.encoder_costvolume import EncoderCostVolume, EncoderCostVolumeCfg
 from ..model.encoder.encoder_epipolar import EncoderEpipolar, EncoderEpipolarCfg
 from ..model.types import Gaussians
 from ..ops.rasterizer.adaptive import choose_settings, probe
@@ -129,14 +130,19 @@ def batch_to(batch: dict, device: torch.device) -> dict:
     return out
 
 
+# The encoder of each configuration, by its `name`.
+ENCODERS = {"epipolar": EncoderEpipolar, "costvolume": EncoderCostVolume}
+
+
 class ModelWrapper:
-    """Holds the encoder (on `device`; it has no layer that behaves
-    differently in training mode), the decoder, the encoder's data shim
-    and, for training, the losses and optimizer settings."""
+    """Holds the encoder its configuration names (on `device`; it has no
+    layer that behaves differently in training mode), the decoder, the
+    encoder's data shim and, for training, the losses and optimizer
+    settings."""
 
     def __init__(
         self,
-        encoder_cfg: EncoderEpipolarCfg,
+        encoder_cfg: Union[EncoderEpipolarCfg, EncoderCostVolumeCfg],
         decoder_cfg: DecoderSplattingCfg,
         device: Union[str, torch.device] = "cuda",
         optimizer_cfg: OptimizerCfg = OptimizerCfg(),
@@ -147,7 +153,7 @@ class ModelWrapper:
     ):
         self.device = resolve_device(device)
         self.encoder_cfg = encoder_cfg
-        self.encoder = EncoderEpipolar(encoder_cfg).to(self.device).eval()
+        self.encoder = ENCODERS[encoder_cfg.name](encoder_cfg).to(self.device).eval()
         self.data_shim = get_data_shim(encoder_cfg)
         self.decoder = DecoderSplatting(decoder_cfg)
         self.optimizer_cfg = optimizer_cfg
@@ -230,7 +236,7 @@ class ModelWrapper:
                 generator=generator, device=self.device,
             )
 
-        if view_order is None and v > 2 and cfg.use_epipolar_transformer:
+        if view_order is None and v > 2 and cfg.name == "epipolar" and cfg.use_epipolar_transformer:
             view_order = torch.randperm(v - 1, generator=generator, device=self.device)
 
         def encode(context, u):

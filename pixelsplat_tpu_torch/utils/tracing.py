@@ -40,7 +40,10 @@ a replayed graph counts as it did eagerly.
 "counters": {name: number}}`, totals since the last `reset()`.
 
 Spans are named `<layer>.<stage>`: `encoder.backbone`, `encoder.epipolar`,
-`encoder.refine` and `encoder.heads` (the encoder); `settings.project`,
+`encoder.refine` and `encoder.heads` (the epipolar encoder);
+`encoder.backbone`, `encoder.mv_transformer`, `encoder.costvolume`,
+`encoder.cv_refine`, `encoder.depth_refine` and `encoder.heads` (the
+cost-volume encoder, which also counts `costvolume_taps`); `settings.project`,
 `settings.occupancy` and the sync point `settings.read` (the render-settings
 probe); `render.project`, `render.bin` and `render.composite` (one view of
 the rasterizer); `kernel.k1` and `kernel.k2` (each compositing launch);

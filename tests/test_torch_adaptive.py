@@ -7,6 +7,8 @@ JAX package and the plain counts elsewhere (`test_torch_rasterizer.py`,
 `test_torch_project_bin.py`, `test_torch_depth_render.py`).
 """
 
+from dataclasses import replace
+
 import pytest
 import torch
 
@@ -47,6 +49,22 @@ def test_choose_settings_rule(case):
     got = choose_settings(occupancy, SETTINGS, g, IMAGE)
     assert (got.capacity, got.big_capacity, got.pair_budget) == want
     assert (got.span, got.chunk, got.tile_size) == (SETTINGS.span, SETTINGS.chunk, SETTINGS.tile_size)
+
+
+# name -> (occupancy, the settings' pair budget, want pair_budget)
+SET_BUDGET = {
+    "demand under a set budget": (Occupancy(300, 70_000, 64), 200_000, -(-200_000 // 128) * 128),
+    "demand over a set budget": (Occupancy(300, 300_000, 64), 200_000, -(-300_000 // 128) * 128),
+}
+
+
+@pytest.mark.parametrize("case", list(SET_BUDGET))
+def test_choose_settings_keeps_a_set_pair_budget(case):
+    """A pair budget in the settings is a floor: the probe's demand only
+    grows it."""
+    occupancy, budget, want = SET_BUDGET[case]
+    got = choose_settings(occupancy, replace(SETTINGS, pair_budget=budget), 100_000, IMAGE)
+    assert (got.capacity, got.big_capacity, got.pair_budget) == (512, 64, want)
 
 
 def test_choose_settings_counts_what_it_chose():

@@ -29,7 +29,7 @@ from torch.utils._pytree import tree_flatten
 from pixelsplat_tpu_torch.model import encodings
 from pixelsplat_tpu_torch.model.encoder.backbone import dino, resnet
 from pixelsplat_tpu_torch.model.encoder.common import gaussian_adapter
-from pixelsplat_tpu_torch.model.encoder.encoder_epipolar import EncoderEpipolar
+from pixelsplat_tpu_torch.model.encoder.graphs import EncoderGraphs
 from pixelsplat_tpu_torch.model.encoder.epipolar.epipolar_sampler import collect_other_views
 from pixelsplat_tpu_torch.ops import sh
 from pixelsplat_tpu_torch.utils import tracing
@@ -174,8 +174,11 @@ def emulated(monkeypatch):
         def __getattr__(self, name):
             return True if name == "is_cuda" else getattr(self.image, name)
 
-    graphed = EncoderEpipolar._graphed
-    monkeypatch.setattr(EncoderEpipolar, "_graphed", lambda self, image, u, dump: graphed(self, CpuImage(image), u, dump))
+    replays = EncoderGraphs.replays
+    monkeypatch.setattr(
+        EncoderGraphs, "replays",
+        staticmethod(lambda image, u, dump, capturing: replays(CpuImage(image), u, dump, capturing)),
+    )
 
 
 def _tiny(views: int):
@@ -301,6 +304,41 @@ def test_emulated_replays_record_spans_and_launches_as_eager(tiny, emulated):
     assert calls(graphed) == calls(eager) == {f"encoder.{s}": 1 for s in ("backbone", "epipolar", "refine", "heads")}
     assert graphed["counters"]["gaussians"] == eager["counters"]["gaussians"]
     assert graphed["counters"]["encoder_graph_scenes.traced"] == 1 and "host_syncs" not in graphed["counters"]
+
+
+def _tiny_costvolume(views: int):
+    from benchmark import generator, port
+
+    config = json.loads((ROOT / "benchmark" / "configs" / "mvsplat.json").read_text())
+    config["image_shape"] = [64, 64]
+    config["encoder"].update(d_feature=32, num_depth_candidates=8, costvolume_unet_feat_dim=16, depth_unet_feat_dim=8,
+                             num_context_views=views)
+    traffic = json.loads((ROOT / "benchmark" / "traffic" / "eval.json").read_text())
+    traffic.update(pool=2)
+    return port.build(config, 13, "cpu"), generator.make_units(traffic, config, 13, "cpu")
+
+
+@pytest.mark.parametrize("views", [2, 3])
+def test_emulated_graphs_replay_the_cost_volume_encoder_as_eager(emulated, views):
+    """MVSplat's six stages through the same graph code: each scene's
+    replay equals its eager encode, with each stage's span."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        wrapper, units = _tiny_costvolume(views)
+        encoder = wrapper.encoder
+        contexts = [_context(wrapper, unit) for unit in units]
+        eager = [_encode(encoder, c, True, pack_soa=True) for c in contexts]
+        tracing.enable(True)
+        graphed = [_encode(encoder, c, pack_soa=True) for c in contexts]
+        assert all(_equal(g, e) for g, e in zip(graphed, eager))
+        stages = ("backbone", "mv_transformer", "costvolume", "cv_refine", "depth_refine", "heads")
+        assert {k: v["calls"] for k, v in tracing.read()["spans"].items() if k.startswith("encoder.")} == {
+            f"encoder.{s}": 2 for s in stages
+        }
+        assert tracing.counter("encoder_graph_captures") == 1 and tracing.counter("encoder_graph_scenes") == 2
+    finally:
+        torch.set_num_threads(threads)
 
 
 # On the card: the real graphs against the eager encode.
