@@ -262,6 +262,13 @@ float32's relative RMS error against float64; K10's ms beside its bound
 (165 TFLOP/s) and cuBLAS float32, K10 faster over a scene's 48 launches;
 one scene's launches (48).
 
+Then conv3x3 (`scripts/bench_conv3x3.py`): the 87 stride-1 3x3
+convolutions of an `mvsplat` evaluation scene (25 distinct shapes, 2 views
+at 256x256) through K11, each within twice cuDNN float32's relative RMS
+error against float64; K11's ms beside its bound (165 TFLOP/s), its plain
+twin and cuDNN float32, K11 faster over the scene; one `mvsplat` scene's
+launches (87).
+
 Every kernel's launch count is set to 0 just before each path is driven
 and read just after it. The run ends with the card line, a JSON record of
 the kernels and {"ok": true, "device": {...}}.
@@ -1453,6 +1460,34 @@ def linear_phase(torch) -> dict:
         fail(f"one re10k scene launched linear_split {launches} times, expected 48")
     phase("linear", f"one re10k scene: linear_split launched {launches} times")
     return dict(scenes=scenes, scene_launches=launches)
+
+
+def conv3x3_phase(torch) -> dict:
+    """`scripts/bench_conv3x3.py` on an `mvsplat` scene's 87 convolutions:
+    K11 within twice cuDNN float32's error against float64 at every shape
+    and faster than cuDNN float32 over the scene; then one `mvsplat` scene's
+    launches (87)."""
+    from pixelsplat_tpu_torch.scripts import bench_conv3x3
+    from pixelsplat_tpu_torch.scripts.eval_scene import make_eval_scene
+    from pixelsplat_tpu_torch.utils import tracing
+
+    record = bench_conv3x3.scene(rounds=5)
+    for s in record["shapes"]:
+        if not s["errors"]["k11"] <= 2 * s["errors"]["cudnn_f32"]:
+            fail(f"conv3x3 {s['shape']}: relative RMS error {s['errors']['k11']:.3g} against float64, above twice "
+                 f"cuDNN float32's {s['errors']['cudnn_f32']:.3g}")
+    if not record["scene"]["ms"] < record["scene"]["library_ms"]:
+        fail(f"conv3x3: {record['scene']['ms']:.3f} ms a scene, not faster than cuDNN float32 "
+             f"{record['scene']['library_ms']:.3f} ms")
+    scene = make_eval_scene("cuda", seed=SEED, model="mvsplat")
+    scene.run(SEED)
+    tracing.reset()
+    scene.run(SEED)
+    launches = tracing.counter("conv3x3_launches")
+    if launches != 87:
+        fail(f"one mvsplat scene launched conv3x3 {launches} times, expected 87")
+    phase("conv3x3", f"one mvsplat scene: conv3x3 launched {launches} times")
+    return dict(record=record, scene_launches=launches)
 
 
 def tools_phase(torch, kernels, first_view):
@@ -3097,8 +3132,9 @@ def main() -> None:
         "composite_fwd_ablation": "k1_ablation_launches",
         "smoke_scale": "smoke_scale_launches",
     }
-    if set(built) != set(kernels) | {"project_bin", "conv7", "linear_split"}:
-        fail(f"built {sorted(built)}, expected the kernels {sorted(kernels)}, project_bin, conv7 and linear_split")
+    if set(built) != set(kernels) | {"project_bin", "conv7", "linear_split", "conv3x3"}:
+        fail(f"built {sorted(built)}, expected the kernels {sorted(kernels)}, project_bin, conv7, linear_split "
+             f"and conv3x3")
     for name, (path, log) in built.items():
         regs = [line.strip() for line in log.splitlines() if "registers" in line]
         phase("build", f"{name} -> {path.relative_to(ROOT)} {regs[0] if regs else ''}")
@@ -3126,6 +3162,9 @@ def main() -> None:
 
     # the ViT's four linear layers against float64 and cuBLAS
     linear = linear_phase(torch)
+
+    # MVSplat's 3x3 convolutions against float64 and cuDNN
+    conv3 = conv3x3_phase(torch)
 
     # 5. the evaluation protocol through the CLI's entry point
     protocol = eval_protocol_phase(torch, kernels)
@@ -3285,6 +3324,16 @@ def main() -> None:
         "by_scene": {name: {**r["scene"], "layers": {k: {m: v[m] for m in ("ms", "library_ms", "width")}
                                                      for k, v in r["layers"].items()}}
                      for name, r in lin.items()},
+    })
+    c3 = conv3["record"]
+    record["kernels"].append({
+        "name": "conv3x3", "route": "cuda", "source": "pixelsplat_tpu_torch/csrc/conv3x3.cu",
+        "replaces": "no Pallas kernel: the JAX package has no MVSplat encoder (cuDNN float32 convolutions)",
+        "launches": conv3["scene_launches"], "launches_by_path": {"mvsplat scene": conv3["scene_launches"]},
+        **{k: c3["scene"][k] for k in ("ms", "bound_ms", "plain_ms", "library_ms")},
+        "bound_by": "operations (3xTF32, 165 TFLOP/s)",
+        "max_rel_rms_err": max(s["errors"]["k11"] for s in c3["shapes"]),
+        "by_shape": {s["shape"]: {m: s[m] for m in ("count", "ms", "bound_ms", "library_ms")} for s in c3["shapes"]},
     })
     for k in record["kernels"]:
         if k["launches"] == 0:

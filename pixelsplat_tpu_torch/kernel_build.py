@@ -40,10 +40,13 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}  # by source path
 # Sources that build together, one nvcc process each, on the first load of
-# any of them from csrc/: an evaluation scene needs K10 and K9 in the
-# encoder, then projection, binning and K1 in the render, so no compile
-# waits for another.
-BUILT_TOGETHER = (("linear_split", "conv7", "composite_fwd", "project_bin"),)
+# any of them from csrc/ that is not built yet (the first group that names
+# it): a pixelSplat evaluation scene needs K10 and K9 in the encoder, an
+# MVSplat one K11, then both projection, binning and K1 in the render, so no
+# compile waits for another, and neither model's scene builds the other's
+# encoder kernels.
+BUILT_TOGETHER = (("linear_split", "conv7", "composite_fwd", "project_bin"),
+                  ("conv3x3", "composite_fwd", "project_bin"))
 
 
 def _nvcc() -> str:
@@ -117,12 +120,13 @@ def build_all() -> dict[str, tuple[Path, str]]:
 
 def load(name: str, csrc: Path | None = None) -> ctypes.CDLL:
     """The loaded library of <csrc>/<name>.cu (csrc/ by default), built on
-    first use, with the sources `BUILT_TOGETHER` with it."""
+    first use, with the sources `BUILT_TOGETHER` with it where it is not
+    built yet."""
     csrc = Path(csrc or CSRC)
     key = f"{csrc.resolve()}/{name}"
     with _lock:
         if key not in _loaded:
-            if csrc.resolve() == CSRC:
+            if csrc.resolve() == CSRC and not library_path(name).exists():
                 build_many(next((group for group in BUILT_TOGETHER if name in group), (name,)))
             path, _ = build(name, csrc)
             _loaded[key] = ctypes.CDLL(str(path))

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ....ops.conv3x3_kernel import Conv3x3
 from ....utils.device_constants import on_device
 from ..epipolar.epipolar_sampler import collect_other_views
 
@@ -38,8 +39,8 @@ CNN_WIDTHS = (64, 96, 128)
 class ResidualBlock(nn.Module):
     def __init__(self, in_planes: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, 1, bias=False)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv1 = Conv3x3(in_planes, planes, stride, bias=False)
+        self.conv2 = Conv3x3(planes, planes, bias=False)
         self.norm1 = nn.InstanceNorm2d(planes)
         self.norm2 = nn.InstanceNorm2d(planes)
         self.downsample = None

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ....ops.conv3x3_kernel import Conv3x3
 from ..epipolar.epipolar_sampler import collect_other_views
 from .unet import UNetModel
 
@@ -87,36 +88,38 @@ class DepthPredictorMultiView(nn.Module):
 
         width = cfg.costvolume_unet_feat_dim
         self.corr_refine_net = nn.Sequential(
-            nn.Conv2d(d + c, width, 3, 1, 1),
+            Conv3x3(d + c, width),
             nn.GroupNorm(8, width),
             nn.GELU(),
             UNetModel(width, tuple(cfg.costvolume_unet_channel_mult), tuple(cfg.costvolume_unet_attn_res), views),
-            nn.Conv2d(width, d, 3, 1, 1),
+            Conv3x3(width, d),
         )
         self.regressor_residual = nn.Conv2d(d + c, d, 1)
-        self.depth_head_lowres = nn.Sequential(nn.Conv2d(d, 2 * d, 3, 1, 1), nn.GELU(), nn.Conv2d(2 * d, d, 3, 1, 1))
+        # A convolution that a GELU follows applies it itself (`Conv3x3(gelu=True)`, K11's epilogue on
+        # the card); the `nn.Identity` in the GELU's place keeps the parameters' names.
+        self.depth_head_lowres = nn.Sequential(Conv3x3(d, 2 * d, gelu=True), nn.Identity(), Conv3x3(2 * d, d))
 
         self.upsampler = nn.Sequential(
-            nn.Conv2d(2 * c, c, 3, 1, 1),
+            Conv3x3(2 * c, c),
             nn.Upsample(scale_factor=cfg.downscale_factor, mode="bilinear", align_corners=True),
             nn.GELU(),
         )
         width = cfg.depth_unet_feat_dim
-        self.proj_feature = nn.Conv2d(c, width, 3, 1, 1)
+        self.proj_feature = Conv3x3(c, width)
         self.refine_unet = nn.Sequential(
-            nn.Conv2d(3 + width + 1 + 1, width, 3, 1, 1),
+            Conv3x3(3 + width + 1 + 1, width),
             nn.GroupNorm(4, width),
             nn.GELU(),
             UNetModel(width, tuple(cfg.depth_unet_channel_mult), tuple(cfg.depth_unet_attn_res), views),
         )
         gpp = cfg.gaussians_per_pixel
         self.to_disparity = nn.Sequential(
-            nn.Conv2d(width, 2 * width, 3, 1, 1), nn.GELU(), nn.Conv2d(2 * width, 2 * gpp, 3, 1, 1)
+            Conv3x3(width, 2 * width, gelu=True), nn.Identity(), Conv3x3(2 * width, 2 * gpp)
         )
         self.to_gaussians = nn.Sequential(
-            nn.Conv2d(width + 3 + c, 2 * gaussian_raw_channels, 3, 1, 1),
-            nn.GELU(),
-            nn.Conv2d(2 * gaussian_raw_channels, gaussian_raw_channels, 3, 1, 1),
+            Conv3x3(width + 3 + c, 2 * gaussian_raw_channels, gelu=True),
+            nn.Identity(),
+            Conv3x3(2 * gaussian_raw_channels, gaussian_raw_channels),
         )
 
     def cost_volume(self, features, intrinsics, extrinsics, near, far):

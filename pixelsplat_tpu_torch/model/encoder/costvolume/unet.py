@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ....ops.conv3x3_kernel import Conv3x3
+
 HEAD_CHANNELS = 32
 
 
@@ -33,9 +35,9 @@ def normalization(channels: int) -> nn.GroupNorm:
 class ResBlock(nn.Module):
     def __init__(self, channels: int, out_channels: int):
         super().__init__()
-        self.in_layers = nn.Sequential(normalization(channels), nn.SiLU(), nn.Conv2d(channels, out_channels, 3, 1, 1))
+        self.in_layers = nn.Sequential(normalization(channels), nn.SiLU(), Conv3x3(channels, out_channels))
         self.out_layers = nn.Sequential(
-            normalization(out_channels), nn.SiLU(), nn.Dropout(0.0), nn.Conv2d(out_channels, out_channels, 3, 1, 1)
+            normalization(out_channels), nn.SiLU(), nn.Dropout(0.0), Conv3x3(out_channels, out_channels)
         )
         self.skip_connection = nn.Identity() if out_channels == channels else nn.Conv2d(channels, out_channels, 1)
 
@@ -72,7 +74,7 @@ class AttentionBlock(nn.Module):
 class Downsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.op = nn.Conv2d(channels, channels, 3, 2, 1)
+        self.op = Conv3x3(channels, channels, stride=2)
 
     def forward(self, x):
         return self.op(x)
@@ -81,7 +83,7 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, 1, 1)
+        self.conv = Conv3x3(channels, channels)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
@@ -94,7 +96,7 @@ class UNetModel(nn.Module):
         def attention(ch):
             return [AttentionBlock(ch, num_views)]
 
-        self.input_blocks = nn.ModuleList([nn.Sequential(nn.Conv2d(channels, channels, 3, 1, 1))])
+        self.input_blocks = nn.ModuleList([nn.Sequential(Conv3x3(channels, channels))])
         skips = [channels]
         ch, ds = channels, 1
         for level, mult in enumerate(channel_mult):
@@ -118,7 +120,7 @@ class UNetModel(nn.Module):
                     layers.append(Upsample(ch))
                     ds //= 2
                 self.output_blocks.append(nn.Sequential(*layers))
-        self.out = nn.Sequential(normalization(ch), nn.SiLU(), nn.Conv2d(ch, channels, 3, 1, 1))
+        self.out = nn.Sequential(normalization(ch), nn.SiLU(), Conv3x3(ch, channels))
 
     def forward(self, x):
         skips = []

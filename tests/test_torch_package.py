@@ -288,8 +288,8 @@ def test_kernel_names_are_the_cu_files_only():
     from pixelsplat_tpu_torch import kernel_build
 
     assert kernel_build.kernel_names() == [
-        "composite_bwd", "composite_fwd", "composite_fwd_ablation", "conv7", "copy_rows", "linear_split", "project_bin",
-        "smoke_scale",
+        "composite_bwd", "composite_fwd", "composite_fwd_ablation", "conv3x3", "conv7", "copy_rows", "linear_split",
+        "project_bin", "smoke_scale",
     ]
 
 

@@ -375,7 +375,7 @@ def test_tool_scripts_import_without_building(tmp_path):
     code = (
         "import importlib\n"
         "from pixelsplat_tpu_torch import kernel_build\n"
-        "for n in ('kernel_smoke', 'bench_segment_sum', 'bench_tool_kernels', 'bench_kernel_ablation', 'eval_scene', 'train_scene', 'profile_scene', 'check_project_bin', 'bench_conv7', 'bench_linear'):\n"
+        "for n in ('kernel_smoke', 'bench_segment_sum', 'bench_tool_kernels', 'bench_kernel_ablation', 'eval_scene', 'train_scene', 'profile_scene', 'check_project_bin', 'bench_conv7', 'bench_linear', 'bench_conv3x3'):\n"
         "    importlib.import_module('pixelsplat_tpu_torch.scripts.' + n)\n"
         "importlib.import_module('pixelsplat_tpu_torch.ops.kernel_tools')\n"
         "importlib.import_module('pixelsplat_tpu_torch.ops.rasterizer.composite_ablation')\n"
@@ -387,8 +387,8 @@ def test_tool_scripts_import_without_building(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == str(
-        ["composite_bwd", "composite_fwd", "composite_fwd_ablation", "conv7", "copy_rows", "linear_split", "project_bin",
-         "smoke_scale"]
+        ["composite_bwd", "composite_fwd", "composite_fwd_ablation", "conv3x3", "conv7", "copy_rows", "linear_split",
+         "project_bin", "smoke_scale"]
     )
     assert not list(tmp_path.iterdir())
 
