@@ -257,10 +257,14 @@ K9 faster than the best; one scene's launches (2).
 
 Then linear (`scripts/bench_linear.py`): the DINO ViT's four linear layers
 of the `re10k` and `re10k_3_view` scenes (2050 and 3075 tokens, 768 ->
-2304, 768, 3072 and 3072 -> 768) through K10, each within twice cuBLAS
-float32's relative RMS error against float64; K10's ms beside its bound
-(165 TFLOP/s) and cuBLAS float32, K10 faster over a scene's 48 launches;
-one scene's launches (48).
+2304, 768, 3072 and 3072 -> 768) and GS-LRM's six of the `gslrm` scene
+(2,048 tokens, 576 -> 1024, 1024 -> 3072, 1024, 4096 and 768, 4096 ->
+1024) through K10, each within twice cuBLAS float32's relative RMS error
+against float64 and within 1e-6 of its plain twin (its parts summed in
+float64); K10's ms beside its bound (165 TFLOP/s) and cuBLAS float32, K10
+faster over each scene's launches; one `re10k` scene's launches (48) and
+one `gslrm` scene's (98), with no float32 layer on the plain route
+(`linear_plain_on_card` 0).
 
 Then conv3x3 (`scripts/bench_conv3x3.py`): the 87 stride-1 3x3
 convolutions of an `mvsplat` evaluation scene (25 distinct shapes, 2 views
@@ -1435,30 +1439,38 @@ def conv7_phase(torch) -> dict:
 
 
 def linear_phase(torch) -> dict:
-    """`scripts/bench_linear.py` on both evaluation scenes' ViT layers: K10
-    within twice cuBLAS float32's error against float64 and faster than
-    cuBLAS over a scene's 48 launches; then one scene's launches (48)."""
+    """`scripts/bench_linear.py` on the evaluation scenes' linear layers (the
+    ViT's of `re10k` and `re10k_3_view`, GS-LRM's of `gslrm`): K10 within
+    twice cuBLAS float32's error against float64 and within `TWIN_RTOL` of
+    its plain twin, and faster than cuBLAS over each scene's launches; then
+    one scene's launches of each model that runs K10 (48, 98), no float32
+    layer on the plain route."""
     from pixelsplat_tpu_torch.scripts import bench_linear
     from pixelsplat_tpu_torch.scripts.eval_scene import make_eval_scene
     from pixelsplat_tpu_torch.utils import tracing
 
     scenes = {name: bench_linear.scene(name, rounds=5) for name in bench_linear.SCENES}
     for name, r in scenes.items():
-        for label, v in r["layers"].items():
-            if not v["errors"]["k10"] <= 2 * v["errors"]["cublas_f32"]:
-                fail(f"linear {name} {label}: relative RMS error {v['errors']['k10']:.3g} against float64, above "
-                     f"twice cuBLAS float32's {v['errors']['cublas_f32']:.3g}")
+        for fault in bench_linear.faults(r):
+            fail(f"linear {fault}")
         if not r["scene"]["ms"] < r["scene"]["library_ms"]:
             fail(f"linear {name}: {r['scene']['ms']:.3f} ms a scene, not faster than cuBLAS float32 "
                  f"{r['scene']['library_ms']:.3f} ms")
-    scene = make_eval_scene("cuda", seed=SEED)
-    scene.run(SEED)
-    tracing.reset()
-    scene.run(SEED)
-    launches = tracing.counter("linear_split_launches")
-    if launches != 48:
-        fail(f"one re10k scene launched linear_split {launches} times, expected 48")
-    phase("linear", f"one re10k scene: linear_split launched {launches} times")
+    launches = {}
+    for model, want in (("re10k", 48), ("gslrm", 98)):
+        scene = make_eval_scene("cuda", seed=SEED, model=model)
+        scene.run(SEED)
+        tracing.reset()
+        scene.run(SEED)
+        launches[f"{model} scene"] = tracing.counter("linear_split_launches")
+        plain = tracing.counter("linear_plain_on_card")
+        if launches[f"{model} scene"] != want or plain:
+            fail(f"one {model} scene launched linear_split {launches[f'{model} scene']} times, expected {want}, "
+                 f"and ran {plain} float32 layers on the plain route, expected 0")
+        phase("linear", f"one {model} scene: linear_split launched {launches[f'{model} scene']} times, "
+                        f"no float32 layer on the plain route")
+        del scene
+        torch.cuda.empty_cache()
     return dict(scenes=scenes, scene_launches=launches)
 
 
@@ -3317,7 +3329,7 @@ def main() -> None:
     record["kernels"].append({
         "name": "linear_split", "route": "cuda", "source": "pixelsplat_tpu_torch/csrc/linear_split.cu",
         "replaces": "no Pallas kernel: pixelsplat_tpu/model/encoder/backbone/dino.py (XLA matrix products)",
-        "launches": linear["scene_launches"], "launches_by_path": {"re10k scene": linear["scene_launches"]},
+        "launches": sum(linear["scene_launches"].values()), "launches_by_path": linear["scene_launches"],
         **{k: lin[RE10K]["scene"][k] for k in ("ms", "bound_ms", "library_ms")},
         "bound_by": "operations (3xTF32, 165 TFLOP/s)",
         "max_rel_rms_err": max(v["errors"]["k10"] for r in lin.values() for v in r["layers"].values()),

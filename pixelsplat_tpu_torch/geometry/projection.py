@@ -118,6 +118,21 @@ def get_world_rays(
     return origins, directions
 
 
+def plucker_rays(
+    extrinsics: torch.Tensor,  # (*batch, 4, 4)
+    intrinsics: torch.Tensor,  # (*batch, 3, 3)
+    shape: tuple[int, int],
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every pixel centre's world ray of an image of `shape` (h, w):
+    (Plücker coordinates (o x d, d), (*batch, h, w, 6); origins o and unit
+    directions d, each (*batch, h, w, 3))."""
+    coordinates, _ = sample_image_grid(shape, extrinsics.device, extrinsics.dtype)
+    origins, directions = get_world_rays(
+        coordinates, extrinsics[..., None, None, :, :], intrinsics[..., None, None, :, :]
+    )
+    return torch.cat([torch.linalg.cross(origins, directions), directions], dim=-1), origins, directions
+
+
 def sample_image_grid(
     shape: tuple[int, int],
     device: torch.device | str,

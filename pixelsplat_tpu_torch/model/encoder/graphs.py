@@ -6,7 +6,7 @@ host issues them more slowly than the card runs them, so without graphs the
 card idles through most of the encode. A graph replay issues a stage's
 launches at once. Each stage (`encoder.backbone`, `encoder.epipolar`,
 `encoder.refine`, `encoder.heads` of the epipolar encoder; six of the
-cost-volume encoder) is its own graph, so that each keeps its span around
+cost-volume encoder; three of GS-LRM's) is its own graph, so that each keeps its span around
 its replay and its device time. A signature's graphs share one memory pool
 and replay in order on the current stream.
 

@@ -1,5 +1,7 @@
 """The DINO ViT's linear layers, `epi(x @ weight.T + bias)`: K10's wrapper
-(`csrc/linear_split.cu`), its plain twin and its gradient.
+(`csrc/linear_split.cu`), its plain twin and its gradient. GS-LRM's encoder
+(`model/encoder/encoder_gslrm.py`) runs its blocks, its patch layer and its
+head through it too.
 
 `linear` decides which version a call runs. CUDA float32 tensors under the
 float32 compute policy launch K10 once for all the views' tokens: `qkv`
@@ -18,14 +20,18 @@ nearest; the weight tile serves as its own hi, which the tensor cores read
 by dropping its low 13 bits (hi = trunc(w), `weight_split`), and lo =
 tf32(w - hi). `linear_split_plain` is that arithmetic in plain PyTorch
 (three float32 matrix products over the parts, TF32 off), so the tests can
-hold the split to float32 on the CPU.
+hold the split to float32 on the CPU; with the parts summed in float64 it
+is K10's reference on the card.
 
 A block of K10 computes 128 rows by `tile_n` columns, 128 or 64, chosen from
 the output's shape and the card's SM count: the width whose blocks finish
 in the fewest rounds over the SMs. Each launch is inside a
-`kernel.linear_split` span and counted by `linear_split_launches`; inside the
+`kernel.linear_split` span and counted by `linear_split_launches`, its
+2 M K N FLOP by `linear_split_flops.traced` while tracing is on; inside the
 encoder's CUDA graphs there is no span, and each replay counts the launches
-its graph holds (`model/encoder/graphs.py`).
+its graph holds (`model/encoder/graphs.py`). A float32 layer on the card at
+a shape K10 does not take runs the plain route and is counted by
+`linear_plain_on_card`, which every benchmarked path holds at 0.
 """
 
 from __future__ import annotations
@@ -120,6 +126,7 @@ def launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, residual: 
             out.data_ptr(), None if z is None else z.data_ptr(), m, n, k, int(gelu), width, terms,
         )
     tracing.count_launch("linear_split_launches")
+    tracing.count_launch("linear_split_flops.traced", 2 * m * n * k)
     return out, z
 
 
@@ -134,19 +141,27 @@ def linear_plain(module: nn.Module, x: torch.Tensor, residual: Optional[torch.Te
     return y if residual is None else residual + y
 
 
-def takes(x: torch.Tensor, module: nn.Module) -> bool:
-    """Whether `linear` launches K10: CUDA float32 input and parameters under
-    the float32 compute policy."""
+def _float32_on_card(x: torch.Tensor, module: nn.Module) -> bool:
+    """CUDA float32 input and parameters under the float32 compute policy."""
     if x.device.type != "cuda" or x.dtype != torch.float32:
         return False
     return (getattr(module, "compute_dtype", None) in (None, torch.float32) and module.weight.dtype == torch.float32
             and module.bias is not None and module.bias.dtype == torch.float32)
 
 
+def takes(x: torch.Tensor, module: nn.Module) -> bool:
+    """Whether `linear` launches K10: a float32 layer on the card at a shape
+    K10 takes (K a multiple of `BLOCK_K`, N of the narrower block width)."""
+    n, k = module.weight.shape
+    return _float32_on_card(x, module) and k % BLOCK_K == 0 and n % WIDTHS[-1] == 0
+
+
 def linear(module: nn.Module, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
            gelu: bool = False) -> torch.Tensor:
     """residual + gelu(module(x)), each part where asked for."""
     if not takes(x, module):
+        if _float32_on_card(x, module):
+            tracing.count_launch("linear_plain_on_card")
         return linear_plain(module, x, residual, gelu)
     params = (module.weight, module.bias)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, residual, *params)):
@@ -191,12 +206,17 @@ def weight_split(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def linear_split_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                       residual: Optional[torch.Tensor] = None, gelu: bool = False, terms: int = 3) -> torch.Tensor:
+                       residual: Optional[torch.Tensor] = None, gelu: bool = False, terms: int = 3,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K10's arithmetic in plain PyTorch: x @ weight.T as lo*hi + hi*lo +
     hi*hi over TF32 parts (`terms` 1: hi*hi alone, plain TF32), in float32
-    with TF32 off, then the bias, GELU and residual."""
+    with TF32 off, then the bias, GELU and residual. `dtype` float64 sums
+    the same parts exactly: the card's reference for K10, since at K 4096
+    float32's own rounding of the products differs from K10's by 1.2e-6."""
     xh, xl = tf32_split(x)
     wh, wl = weight_split(weight)
+    xh, xl, wh, wl, bias = (t.to(dtype) for t in (xh, xl, wh, wl, bias))
+    residual = None if residual is None else residual.to(dtype)
     flag = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:

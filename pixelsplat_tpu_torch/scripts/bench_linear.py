@@ -1,17 +1,25 @@
-"""K10 (`csrc/linear_split.cu`), the DINO ViT's four linear layers, on the
-card: its error against float64 and its time, beside its bound and cuBLAS.
+"""K10 (`csrc/linear_split.cu`) at every linear layer of an evaluation
+scene, on the card: its error against float64 and against its plain twin,
+and its time, beside its bound and cuBLAS.
 
-    python -m pixelsplat_tpu_torch.scripts.bench_linear [--scenes re10k re10k_3_view] [--rounds 5]
+    python -m pixelsplat_tpu_torch.scripts.bench_linear [--scenes re10k re10k_3_view gslrm] [--rounds 5]
 
-For each evaluation scene (2 or 3 context views at 256x256: 1025 tokens a
-view, ViT-B/8's widths, seeded random weights and activations) it runs each
-of a block's layers once as the encoder does, all views in one launch: qkv
-768 -> 2304 with its bias, proj 768 -> 768 with its bias and the residual,
-fc1 768 -> 3072 with its bias and the GELU, fc2 3072 -> 768 with its bias and
-the residual. For each it prints the relative RMS error against float64 of
-K10, of its plain TF32 build and of cuBLAS float32, and the milliseconds of
-a launch (CUDA events, the median of `--rounds` rounds, the versions in a
-new order each round) of:
+Each scene runs each of its layers once as the encoder does, all views in
+one launch, on seeded random weights and activations:
+
+* `re10k` and `re10k_3_view` (2 or 3 context views at 256x256: 1025 tokens
+  a view, ViT-B/8's widths): qkv 768 -> 2304 with its bias, proj 768 -> 768
+  with its bias and the residual, fc1 768 -> 3072 with its bias and the
+  GELU, fc2 3072 -> 768 with its bias and the residual; 12 blocks.
+* `gslrm` (2 views at 256x256: 2,048 tokens, GS-LRM's widths): the patch's
+  layer 576 -> 1024, qkv 1024 -> 3072, proj 1024 -> 1024 with the residual,
+  fc1 1024 -> 4096 with the GELU, fc2 4096 -> 1024 with the residual, the
+  head 1024 -> 768; the four block layers 24 times.
+
+For each layer it prints the relative RMS error against float64 of K10, of
+its plain TF32 build and of cuBLAS float32, K10's against its plain twin
+(`linear_split_plain`, the parts summed in float64), and the milliseconds of a launch (CUDA events, the
+median of `--rounds` rounds, the versions in a new order each round) of:
 
 * K10 at the block width `tile_n` chooses, and at each width it takes
   (`ms_by_width`);
@@ -19,9 +27,10 @@ new order each round) of:
   the encoder took before K10 (`library_ms`);
 
 beside the bound, the layer's FLOP over 165 TFLOP/s (the H100's 495 TFLOP/s
-TF32 rate over the three products). A scene's total is its 12 blocks' four
-layers. It ends with one JSON line and exits 1 where K10's error is above
-twice cuBLAS float32's.
+TF32 rate over the three products). A scene's total is each layer's time
+times its launches a scene. It ends with one JSON line and exits 1 where
+K10's error is above twice cuBLAS float32's or its twin's difference above
+`TWIN_RTOL`.
 """
 
 from __future__ import annotations
@@ -35,12 +44,16 @@ import torch.nn.functional as F
 
 from pixelsplat_tpu_torch.scripts.bench_conv7 import PEAK_SPLIT_FLOPS, rel_rms, time_versions
 
-SCENES = {"re10k": 2, "re10k_3_view": 3}
-TOKENS = 1025  # a 256x256 view at patch 8, and the CLS token
-DIM, HIDDEN, DEPTH = 768, 3072, 12
-# name: (K, N, epilogue)
-LAYERS = {"qkv": (DIM, 3 * DIM, "bias"), "proj": (DIM, DIM, "residual"), "fc1": (DIM, HIDDEN, "gelu"),
-          "fc2": (HIDDEN, DIM, "residual")}
+# name: (K, N, epilogue, launches a scene)
+VIT = {"qkv": (768, 2304, "bias", 12), "proj": (768, 768, "residual", 12), "fc1": (768, 3072, "gelu", 12),
+       "fc2": (3072, 768, "residual", 12)}
+GSLRM = {"patch": (576, 1024, "bias", 1), "qkv": (1024, 3072, "bias", 24), "proj": (1024, 1024, "residual", 24),
+         "fc1": (1024, 4096, "gelu", 24), "fc2": (4096, 1024, "residual", 24), "head": (1024, 768, "bias", 1)}
+# name: (rows, layers): ViT-B/8's 1025 tokens a 256x256 view (patch 8 and
+# the CLS token); GS-LRM's 1,024 a view, both views in one sequence.
+SCENES = {"re10k": (2 * 1025, VIT), "re10k_3_view": (3 * 1025, VIT), "gslrm": (2 * 1024, GSLRM)}
+# K10 against its plain twin: the test's tolerance (`tests/test_torch_linear_split.py`).
+TWIN_RTOL = 1e-6
 
 
 def flops(m: int, k: int, n: int) -> float:
@@ -53,10 +66,9 @@ def cublas(x, w, b, gelu, residual):
     return z if residual is None else residual + z
 
 
-def layer(name: str, m: int, rounds: int, gen: torch.Generator) -> dict:
+def layer(k: int, n: int, epi: str, m: int, rounds: int, gen: torch.Generator) -> dict:
     from pixelsplat_tpu_torch.ops import linear_kernel
 
-    k, n, epi = LAYERS[name]
     x = torch.randn((m, k), generator=gen).cuda()
     w = ((torch.rand((n, k), generator=gen) * 2 - 1) / k**0.5).cuda()
     b = ((torch.rand((n,), generator=gen) * 2 - 1) / k**0.5).cuda()
@@ -72,9 +84,10 @@ def layer(name: str, m: int, rounds: int, gen: torch.Generator) -> dict:
         k10 = linear_kernel.launch(x, w, b, residual, gelu)[0]
         tf32 = linear_kernel.launch(x, w, b, residual, gelu, terms=1)[0]
         lib = cublas(x, w, b, gelu, residual)
+        twin = linear_kernel.linear_split_plain(x, w, b, residual, gelu, dtype=torch.float64)
         errors = {"k10": rel_rms(k10, want, base), "tf32": rel_rms(tf32, want, base),
-                  "cublas_f32": rel_rms(lib, want, base)}
-        del k10, tf32, lib, want
+                  "cublas_f32": rel_rms(lib, want, base), "twin": rel_rms(k10, twin, base)}
+        del k10, tf32, lib, want, twin
         width = linear_kernel.tile_n(m, n, torch.cuda.get_device_properties(0).multi_processor_count)
         fns = {"ms": lambda: linear_kernel.launch(x, w, b, residual, gelu),
                "library_ms": lambda: cublas(x, w, b, gelu, residual)}
@@ -89,25 +102,42 @@ def layer(name: str, m: int, rounds: int, gen: torch.Generator) -> dict:
 
 
 def scene(name: str, rounds: int) -> dict:
-    m = SCENES[name] * TOKENS
+    m, layers = SCENES[name]
     gen = torch.Generator().manual_seed(23)
-    out = {"name": name, "views": SCENES[name], "m": m, "layers": {}}
+    out = {"name": name, "m": m, "layers": {}}
     total = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    for label in LAYERS:
-        r = layer(label, m, rounds, gen)
+    for label, (k, n, epi, count) in layers.items():
+        r = layer(k, n, epi, m, rounds, gen)
         out["layers"][label] = r
         for key in total:
-            total[key] += DEPTH * r[key]
+            total[key] += count * r[key]
         e = r["errors"]
         widths = ", ".join(f"{wd}: {ms:.4f}" for wd, ms in r["ms_by_width"].items())
-        print(f"{name} {label} ({m} x {r['k']} -> {r['n']}): K10 {r['ms']:.4f} ms at width {r['width']} "
+        print(f"{name} {label} ({m} x {k} -> {n}, {count} a scene): K10 {r['ms']:.4f} ms at width {r['width']} "
               f"({r['tflops']:.1f} TFLOP/s, {100 * r['bound_ms'] / r['ms']:.1f} % of the bound {r['bound_ms']:.4f}; "
               f"by width {widths}), cuBLAS float32 {r['library_ms']:.4f} | relative RMS error against float64: "
-              f"K10 {e['k10']:.3g}, plain TF32 {e['tf32']:.3g}, cuBLAS float32 {e['cublas_f32']:.3g}", flush=True)
+              f"K10 {e['k10']:.3g}, plain TF32 {e['tf32']:.3g}, cuBLAS float32 {e['cublas_f32']:.3g}; "
+              f"against the twin {e['twin']:.3g}", flush=True)
+    out["launches"] = sum(count for *_, count in layers.values())
     out["scene"] = total
     out["roofline_share"] = 100.0 * total["bound_ms"] / total["ms"]
-    print(f"{name} a scene (12 blocks x 4 layers): K10 {total['ms']:.3f} ms ({out['roofline_share']:.1f} % of the "
-          f"3xTF32 bound {total['bound_ms']:.3f}), cuBLAS float32 {total['library_ms']:.3f}", flush=True)
+    print(f"{name} a scene ({out['launches']} launches): K10 {total['ms']:.3f} ms ({out['roofline_share']:.1f} % of "
+          f"the 3xTF32 bound {total['bound_ms']:.3f}), cuBLAS float32 {total['library_ms']:.3f}", flush=True)
+    return out
+
+
+def faults(record: dict) -> list[str]:
+    """Each layer whose K10 error is above twice cuBLAS float32's against
+    float64, or whose difference from the twin is above `TWIN_RTOL`."""
+    out = []
+    for label, v in record["layers"].items():
+        e = v["errors"]
+        if not e["k10"] <= 2 * e["cublas_f32"]:
+            out.append(f"{record['name']} {label}: relative RMS error {e['k10']:.3g} against float64, above twice "
+                       f"cuBLAS float32's {e['cublas_f32']:.3g}")
+        if not e["twin"] <= TWIN_RTOL:
+            out.append(f"{record['name']} {label}: relative RMS difference {e['twin']:.3g} from the plain twin, "
+                       f"above {TWIN_RTOL:g}")
     return out
 
 
@@ -127,8 +157,9 @@ def main(argv=None) -> int:
     print(card, flush=True)
     record = {"card": card, "scenes": [scene(s, args.rounds) for s in args.scenes]}
     print(json.dumps(record))
-    bad = [(s["name"], k) for s in record["scenes"] for k, v in s["layers"].items()
-           if not v["errors"]["k10"] <= 2 * v["errors"]["cublas_f32"]]
+    bad = [f for s in record["scenes"] for f in faults(s)]
+    for f in bad:
+        print(f, file=sys.stderr)
     return 1 if bad else 0
 
 

@@ -39,6 +39,7 @@ from ..loss import get_losses
 from ..model.decoder.decoder_splatting import DecoderSplatting, DecoderSplattingCfg
 from ..model.encoder.data_shim import get_data_shim
 from ..model.encoder.encoder_costvolume import EncoderCostVolume, EncoderCostVolumeCfg
+from ..model.encoder.encoder_gslrm import EncoderGslrm, EncoderGslrmCfg
 from ..model.encoder.encoder_epipolar import EncoderEpipolar, EncoderEpipolarCfg
 from ..model.types import Gaussians
 from ..ops.rasterizer.adaptive import choose_settings, probe
@@ -131,7 +132,7 @@ def batch_to(batch: dict, device: torch.device) -> dict:
 
 
 # The encoder of each configuration, by its `name`.
-ENCODERS = {"epipolar": EncoderEpipolar, "costvolume": EncoderCostVolume}
+ENCODERS = {"epipolar": EncoderEpipolar, "costvolume": EncoderCostVolume, "gslrm": EncoderGslrm}
 
 
 class ModelWrapper:
@@ -142,7 +143,7 @@ class ModelWrapper:
 
     def __init__(
         self,
-        encoder_cfg: Union[EncoderEpipolarCfg, EncoderCostVolumeCfg],
+        encoder_cfg: Union[EncoderEpipolarCfg, EncoderCostVolumeCfg, EncoderGslrmCfg],
         decoder_cfg: DecoderSplattingCfg,
         device: Union[str, torch.device] = "cuda",
         optimizer_cfg: OptimizerCfg = OptimizerCfg(),

@@ -24,7 +24,9 @@ lifted, so that under "error" every sync the program does not declare
 raises. `count(name, n)` adds a host number, `count_device(name, x)` the sum
 of a device tensor (without a sync, resolved by `read`). `count_launch` is
 the launch counter of the port's hand-written kernels, which counts whether
-or not tracing is on.
+or not tracing is on; a launch counter named `<name>.traced` counts only
+while tracing is on, replays included, so that it covers the same scenes as
+a trace (`linear_split_flops.traced`, the work of K10's launches).
 
 `count_always(name)` counts whether or not tracing is on too, and while it is
 on also under `<name>.traced`, so that a reader of a traced window can tell
@@ -43,7 +45,9 @@ Spans are named `<layer>.<stage>`: `encoder.backbone`, `encoder.epipolar`,
 `encoder.refine` and `encoder.heads` (the epipolar encoder);
 `encoder.backbone`, `encoder.mv_transformer`, `encoder.costvolume`,
 `encoder.cv_refine`, `encoder.depth_refine` and `encoder.heads` (the
-cost-volume encoder, which also counts `costvolume_taps`); `settings.project`,
+cost-volume encoder, which also counts `costvolume_taps`);
+`encoder.backbone`, `encoder.transformer` and `encoder.heads` (the GS-LRM
+encoder, which also counts `gslrm_tokens`); `settings.project`,
 `settings.occupancy` and the sync point `settings.read` (the render-settings
 probe); `render.project`, `render.bin` and `render.composite` (one view of
 the rasterizer); `kernel.k1` and `kernel.k2` (each compositing launch);
@@ -208,20 +212,26 @@ def count_device(name: str, x: torch.Tensor) -> None:
         _store.device_counters[name] = total if previous is None else previous + total
 
 
-def count_launch(name: str) -> None:
-    """One launch of a hand-written kernel, counted whether or not tracing
-    is on (inside `held`, into the capture's own counts)."""
+def _add_launch(name: str, n: float) -> None:
+    if not name.endswith(".traced") or _on or _autograd_profiler._is_profiler_enabled:
+        _add(name, n)
+
+
+def count_launch(name: str, n: float = 1) -> None:
+    """Add `n` to launch counter `name` (one launch of a hand-written
+    kernel, or its work), whether or not tracing is on unless the name ends
+    in `.traced` (inside `held`, into the capture's own counts)."""
     launches = _held()
     if launches is not None:
-        launches[name] = launches.get(name, 0) + 1
+        launches[name] = launches.get(name, 0) + n
     else:
-        _add(name, 1)
+        _add_launch(name, n)
 
 
 def count_launches(launches: dict) -> None:
     """Add a captured graph's launch counts (`held`), once a replay."""
     for name, n in launches.items():
-        _add(name, n)
+        _add_launch(name, n)
 
 
 def count_always(name: str, n: float = 1) -> None:

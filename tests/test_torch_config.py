@@ -95,15 +95,15 @@ def test_presets_equal_the_loaded_experiment(experiment):
 
 # The presets the JAX package composes too: those of pixelSplat's epipolar
 # encoder, the only encoder it has (`mvsplat`, MVSplat's cost-volume
-# encoder, is the port's alone).
+# encoder, and `gslrm`, GS-LRM's transformer, are the port's alone).
 JAX_EXPERIMENTS = sorted(name for name, (model, _) in pt_config.EXPERIMENTS.items() if model()[0].name == "epipolar")
 
 
 @pytest.mark.parametrize("experiment", JAX_EXPERIMENTS)
 def test_presets_equal_the_jax_loaded_experiment(experiment):
-    """Each preset that the JAX package composes (every one but `mvsplat`)
-    against what its own loader composes for the experiment, field for
-    field."""
+    """Each preset that the JAX package composes (every one but `mvsplat`
+    and `gslrm`) against what its own loader composes for the experiment,
+    field for field."""
     want = jx_config.load_config([f"+experiment={experiment}"])
     model, training = pt_config.EXPERIMENTS[experiment]
     encoder, decoder = model()
@@ -137,6 +137,23 @@ def test_the_other_presets_set_what_their_experiments_change():
     assert dataclasses.asdict(encoder) == dataclasses.asdict(want.encoder)
     assert dataclasses.asdict(decoder) == dataclasses.asdict(want.decoder)
     assert (encoder.backbone.name, encoder.backbone.model, encoder.backbone.num_layers) == ("resnet", "resnet50", 5)
+
+
+@pytest.mark.parametrize("name", ["mvsplat", "gslrm"])
+def test_benchmark_configuration_overlays_its_composed_experiment(name):
+    """`config/experiment/<name>.yaml` composes to the preset that the
+    benchmark's configuration file overlays, and the file, which lists
+    every encoder field, changes none of them."""
+    import json
+    from pathlib import Path
+
+    from benchmark import port
+
+    config = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "configs" / f"{name}.json").read_text())
+    loaded = pt_config.load_config([f"+experiment={config['experiment']}"])
+    encoder, decoder = port.model_cfgs(config)
+    assert encoder == loaded.model.encoder == pt_config.EXPERIMENTS[name][0]()[0]
+    assert decoder == loaded.model.decoder
 
 
 def test_num_target_views_preset_equals_the_loaded_sampler():

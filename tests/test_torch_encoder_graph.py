@@ -341,6 +341,34 @@ def test_emulated_graphs_replay_the_cost_volume_encoder_as_eager(emulated, views
         torch.set_num_threads(threads)
 
 
+def test_emulated_graphs_replay_the_gslrm_encoder_as_eager(emulated):
+    """GS-LRM's three stages through the same graph code: each scene's
+    replay equals its eager encode, with each stage's span."""
+    from benchmark import generator, port
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        config = json.loads((ROOT / "benchmark" / "configs" / "gslrm.json").read_text())
+        config["image_shape"] = [32, 32]
+        config["encoder"].update(depth=2, d_model=64, heads=4)
+        traffic = json.loads((ROOT / "benchmark" / "traffic" / "eval.json").read_text())
+        traffic.update(pool=2)
+        wrapper = port.build(config, 13, "cpu")
+        encoder = wrapper.encoder
+        contexts = [_context(wrapper, unit) for unit in generator.make_units(traffic, config, 13, "cpu")]
+        eager = [_encode(encoder, c, True, pack_soa=True) for c in contexts]
+        tracing.enable(True)
+        graphed = [_encode(encoder, c, pack_soa=True) for c in contexts]
+        assert all(_equal(g, e) for g, e in zip(graphed, eager))
+        assert {k: v["calls"] for k, v in tracing.read()["spans"].items() if k.startswith("encoder.")} == {
+            f"encoder.{s}": 2 for s in ("backbone", "transformer", "heads")
+        }
+        assert tracing.counter("encoder_graph_captures") == 1 and tracing.counter("encoder_graph_scenes") == 2
+    finally:
+        torch.set_num_threads(threads)
+
+
 # On the card: the real graphs against the eager encode.
 
 

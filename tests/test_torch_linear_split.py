@@ -11,6 +11,8 @@ layers take the same plain float32 route as before K10. The card tests
     python -m pytest tests/test_torch_linear_split.py -m cuda --noconftest -p no:cacheprovider
 """
 
+from types import SimpleNamespace
+
 import pytest
 import torch
 import torch.nn.functional as F
@@ -198,6 +200,36 @@ def test_launch_refuses_what_the_kernel_does_not_take(case, match):
 
 
 @pytest.mark.parametrize(
+    "k, n, want",
+    [(768, 2304, True), (3072, 768, True), (576, 1024, True), (1024, 768, True), (1024, 4096, True),
+     (48, 128, False), (64, 96, False), (64, 32, False)],
+)
+def test_takes_checks_the_kernels_shape_rule(k, n, want):
+    """A CUDA float32 input under the float32 policy takes K10 only where
+    K10 computes the layer's shape (K a multiple of 32, N of 64); another
+    layer takes the plain route instead of raising in `launch`. The input
+    is a stand-in that names a CUDA device, which a machine without a card
+    cannot allocate on."""
+    x = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32)
+    assert linear_kernel.takes(x, precision.Linear(k, n)) is want
+    assert not linear_kernel.takes(x, precision.Linear(k, n, compute_dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("k, n, policy, counted", [(48, 128, None, 1), (64, 96, None, 1), (48, 128, "bf16", 0)])
+def test_a_float32_layer_off_the_rule_is_counted_on_its_plain_route(monkeypatch, k, n, policy, counted):
+    """A float32 layer on the card at a shape K10 does not take runs plain
+    and counts `linear_plain_on_card`; under the bf16 policy the plain route
+    is the chosen one and counts nothing. The input is a stand-in that names
+    a CUDA device, and the plain route a stand-in too."""
+    monkeypatch.setattr(linear_kernel, "linear_plain", lambda *args: "plain")
+    x = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32)
+    module = precision.Linear(k, n, compute_dtype=torch.bfloat16 if policy else None)
+    assert linear_kernel.linear(module, x) == "plain"
+    assert tracing.counter("linear_plain_on_card") == counted
+    assert tracing.counter("linear_split_launches") == 0
+
+
+@pytest.mark.parametrize(
     "m, n, sms, want",
     [
         (2050, 768, 132, 128),  # 102 blocks at 128 fill one round; 204 at 64 take two
@@ -269,11 +301,17 @@ def test_k10_is_within_twice_cublas_float32_error_and_plain_tf32_is_not(name, sc
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m, k, n", [(2, 32, 64), (130, 96, 192), (257, 3072, 128), (1000, 768, 2304)])
+@pytest.mark.parametrize(
+    "m, k, n",
+    [(2, 32, 64), (130, 96, 192), (257, 3072, 128), (1000, 768, 2304), (2048, 576, 1024), (2048, 1024, 768),
+     (2048, 1024, 3072), (2048, 1024, 1024), (2048, 1024, 4096), (2048, 4096, 1024)],
+)
 @pytest.mark.parametrize("width", linear_kernel.WIDTHS)
 def test_k10_matches_its_plain_twin(m, k, n, width):
     """Ragged rows, an odd number of stages, both widths, each epilogue,
-    the pre-activation and leading dimensions."""
+    the pre-activation and leading dimensions; the twin's parts summed in
+    float64, since at GS-LRM's K 4096 float32's own rounding of the twin's
+    products alone differs from K10 by 1.2e-6."""
     _card()
     if n % width:
         pytest.skip(f"n {n} is not a multiple of {width}")
@@ -284,8 +322,8 @@ def test_k10_matches_its_plain_twin(m, k, n, width):
     for gelu, res in ((True, None), (False, residual), (False, None)):
         with torch.no_grad():
             out, pre = linear_kernel.launch(x, module.weight, module.bias, res, gelu, pre=True, block_n=width)
-            want = linear_kernel.linear_split_plain(x, module.weight, module.bias, res, gelu)
-            want_pre = linear_kernel.linear_split_plain(x, module.weight, module.bias)
+            want = linear_kernel.linear_split_plain(x, module.weight, module.bias, res, gelu, dtype=torch.float64)
+            want_pre = linear_kernel.linear_split_plain(x, module.weight, module.bias, dtype=torch.float64)
         base = 0.0 if res is None else res.double()
         assert out.shape == (1, m, n)
         assert rel_rms(out, want, base) < 1e-6

@@ -91,6 +91,19 @@ def test_held_records_nothing_and_keeps_the_launches_for_replays():
     assert tracing.read()["counters"] == {"conv7_launches": 4} and tracing.read()["spans"]["a"]["calls"] == 1
 
 
+def test_a_traced_launch_counter_counts_only_while_tracing_replays_included():
+    with tracing.held() as launches:
+        tracing.count_launch("linear_split_flops.traced", 5)
+        tracing.count_launch("linear_split_launches")
+    assert launches == {"linear_split_flops.traced": 5, "linear_split_launches": 1}
+    tracing.count_launches(launches)  # an untraced replay
+    tracing.count_launch("linear_split_flops.traced", 7)  # an untraced eager launch
+    tracing.enable(True)
+    tracing.count_launches(launches)
+    tracing.count_launch("linear_split_flops.traced", 7)
+    assert tracing.read()["counters"] == {"linear_split_flops.traced": 12, "linear_split_launches": 2}
+
+
 def test_count_always_counts_the_traced_part_apart():
     tracing.count_always("encoder_graph_scenes")
     tracing.enable(True)
